@@ -12,13 +12,23 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
 3. the main path at the configuration ``bench.py`` times (TUM fr1 640x480,
    512^3 block map, table 65536, 2048 listed blocks, ICP (10,5,4) with
    association every (2,2,4), color every 4th frame, splat prediction
-   without color), with the plain preprocess: 3 warm-up frames and 30
-   timed frames in chunks of 6 on the synthetic orbit.  Every frame must
-   track, the ATE must stay below the voxel size, and each kernel's launch
-   count must rise by its expected count per frame;
-4. each kernel against its plain PyTorch version, on inputs taken from the
-   port's own state at that configuration, with times of the kernel, the
-   plain version and, where one PyTorch call does the same work, that call.
+   without color, the fused preprocess): 3 warm-up frames and 30 timed
+   frames in chunks of 6 on the synthetic orbit.  Every frame must track,
+   the ATE must stay below the voxel size, and each kernel's launch count
+   must rise by its expected count per frame;
+4. the instance path (config3's instance fusion on that geometry, 96
+   instance slots, the packaged head's 5 classes) over the same 33 frames,
+   every 2nd frame through ``slam.step_seg`` with the frame's ground-truth
+   masks: tracking, ATE and launch counts as above, K7 once per segmented
+   frame, a populated instance table, and the fused labels read back at
+   the final prediction must cover and agree with the ground truth;
+5. each kernel against its plain PyTorch version, on inputs taken from the
+   port's own state at those configurations, with times of the kernel, the
+   plain version and, where one PyTorch call does the same work, that call;
+6. the packaged segmentation head at 640x480 on the card, held against the
+   same head on the CPU: outputs, the grouping of the same outputs, and the
+   whole segmentation on frames whose grouping does not hinge on tied
+   heatmap peaks; then one ``step_seg`` on a head segmentation.
 
 Any failed check exits non-zero.  The second-to-last line is the card's
 name and power limit, the line before it a JSON record per kernel, and the
@@ -27,6 +37,7 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,22 +51,39 @@ PEAK_FP32_PER_S = 67e12  # H100 SXM fp32 outside the tensor cores
 # Per-pixel fp32 operations of one Gauss-Newton step on a gated pixel
 # (pose transform 33, residual and gates 20, Jacobian 9, 27 sums x 2).
 GN_FLOPS_PER_PIXEL = 116
+# Per-pixel fp32 operations of K1: 25 bilateral taps of ~8 (difference,
+# two products, exponent, weighted sums) and ~60 for the vertex, the
+# central differences, the cross product and its normalization.
+PREPROCESS_FLOPS_PER_PIXEL = 260
+# Per-voxel fp32 operations of K7: center 6, transform 18, projection 8,
+# rounding and gates ~8.
+VOTE_FLOPS_PER_VOXEL = 40
 WARMUP, TIMED, CHUNK = 3, 30, 6
-PER_FRAME = {"K2": 9, "K3": 9, "K4": 1, "K5": 1}
+PER_FRAME = {"K1": 1, "K2": 9, "K3": 9, "K4": 1, "K5": 1}
+HEAD_FRAMES = 3
+# A frame's head segmentation is held end to end against the CPU's where it
+# survives HEAD_TRIALS perturbations of the outputs by up to HEAD_EPS, above
+# the card's largest difference from the CPU (1.4e-5, on the logits).
+HEAD_EPS, HEAD_TRIALS = 2e-5, 3
 REPLACES = {
+    "K1": "instancefusion_tpu/ops/pallas/preprocess.py:123 fused_preprocess",
     "K2": "instancefusion_tpu/ops/pallas/icp.py:218 gather_target_maps",
     "K3": "instancefusion_tpu/ops/pallas/icp.py:565 gn_iterations",
     "K4": "instancefusion_tpu/ops/pallas/tsdf.py:356 fused_integrate_groups "
           "(and :252 fused_integrate)",
     "K5": "instancefusion_tpu/ops/pallas/raycast.py:319 splat_depth_groups "
           "(and :581 splat_depth)",
+    "K7": "instancefusion_tpu/ops/pallas/tsdf.py:478 fused_label_vote",
 }
-SOURCES = {"K2": "instancefusion_tpu_torch/csrc/icp.cu",
+SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
+           "K2": "instancefusion_tpu_torch/csrc/icp.cu",
            "K3": "instancefusion_tpu_torch/csrc/icp.cu",
            "K4": "instancefusion_tpu_torch/csrc/tsdf.cu",
-           "K5": "instancefusion_tpu_torch/csrc/raycast.cu"}
-NAMES = {"K2": "gather_target_maps", "K3": "gn_iterations",
-         "K4": "integrate", "K5": "splat_planes"}
+           "K5": "instancefusion_tpu_torch/csrc/raycast.cu",
+           "K7": "instancefusion_tpu_torch/csrc/labels.cu"}
+NAMES = {"K1": "fused_preprocess", "K2": "gather_target_maps",
+         "K3": "gn_iterations", "K4": "integrate", "K5": "splat_planes",
+         "K7": "label_vote"}
 
 
 def fail(msg: str) -> None:
@@ -110,37 +138,55 @@ def bench_config():
         raycast=RaycastConfig(near=0.2, far=4.0, use_depth_prior=True,
                               screen_space_normals=True, use_splat=True,
                               predict_color=False),
-        preprocess=PreprocessConfig(use_pallas=False),
+        preprocess=PreprocessConfig(use_pallas=True),
         map_kind="blocks", use_color=True, color_every=4,
     )
 
 
-def step(cfg, state, frame):
-    """One ``slam.step``, failing if anything in it waits for the device."""
+def instance_config(num_classes: int):
+    """The bench geometry with config3's instance fusion (96 slots)."""
+    from instancefusion_tpu_torch.config import InstanceConfig
+
+    return dataclasses.replace(bench_config(), use_instances=True,
+                               instances=InstanceConfig(num_classes=num_classes))
+
+
+def step(cfg, state, frame, seg=None):
+    """One ``slam.step`` (``slam.step_seg`` with a segmentation), failing if
+    anything in it waits for the device."""
     from instancefusion_tpu_torch.engine import slam
 
     torch.cuda.set_sync_debug_mode("error")
     try:
-        return slam.step(cfg, state, frame.depth, frame.color)
+        if seg is None:
+            return slam.step(cfg, state, frame.depth, frame.color)
+        return slam.step_seg(cfg, state, frame.depth, frame.color, seg)
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
 
-def run_main_path(cfg, frames, poses, card):
-    """Drive the main path over `frames` with every check; returns the final
-    state and the kernel launch counts of the run."""
+def run_path(cfg, frames, poses, card, name, seg_every=0):
+    """Drive one path over `frames` with every check; every `seg_every`-th
+    frame (from frame 0) goes through ``slam.step_seg`` with its ground-truth
+    masks when `seg_every` is set.  Returns the final state and the kernel
+    launch counts of the run."""
+    from instancefusion_tpu_torch.datasets import synthetic
     from instancefusion_tpu_torch.engine import slam
     from instancefusion_tpu_torch.ops import kernels
     from instancefusion_tpu_torch.utils.ate import ate_rmse
 
     n = WARMUP + TIMED
+    segs = [synthetic.gt_segmentation(f.instance, cfg.instances.max_instances)
+            if seg_every and i % seg_every == 0 else None for i, f in enumerate(frames)]
+    n_seg = sum(seg is not None for seg in segs)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     state = slam.init_state(cfg, poses[0])
     track_ok, est = [], []
     t0 = time.perf_counter()
-    for f in frames[:WARMUP]:
-        state, info = step(cfg, state, f)
+    for f, seg in zip(frames[:WARMUP], segs):
+        state, info = step(cfg, state, f, seg)
         track_ok.append(info.track_ok[None])
         est.append(state.T_wc)
     torch.cuda.synchronize()
@@ -149,13 +195,12 @@ def run_main_path(cfg, frames, poses, card):
     t_all = time.perf_counter()
     for i in range(WARMUP, n, CHUNK):
         t0 = time.perf_counter()
-        chunk = frames[i:i + CHUNK]
-        for f in chunk:  # per-frame poses for the ATE, same calls as run_chunk
-            state, info = step(cfg, state, f)
+        for f, seg in zip(frames[i:i + CHUNK], segs[i:i + CHUNK]):
+            state, info = step(cfg, state, f, seg)
             track_ok.append(info.track_ok[None])
             est.append(state.T_wc)
         torch.cuda.synchronize()
-        chunk_ms.append((time.perf_counter() - t0) * 1e3 / len(chunk))
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / len(frames[i:i + CHUNK]))
     timed_s = time.perf_counter() - t_all
     launches = {k: fn.launches for k, fn in kernels.wrappers().items()}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -163,16 +208,136 @@ def run_main_path(cfg, frames, poses, card):
     ok = torch.cat(track_ok).cpu().numpy()
     ate = ate_rmse(torch.stack(est).cpu().numpy(), poses[:n].cpu().numpy())
     fps = TIMED / timed_s
-    print(f"main path: {n} frames ({WARMUP} warm-up in {warm_s!r} s), "
+    print(f"{name}: {n} frames ({n_seg} segmented; {WARMUP} warm-up in {warm_s!r} s), "
           f"{fps!r} frames/s, {1e3 / fps!r} ms/frame (per chunk of {CHUNK}: "
           f"{chunk_ms!r}), peak memory {peak_gib!r} GiB, ATE {ate * 1e3!r} mm, "
           f"launches {launches} [{card}]", flush=True)
-    check(ok.all(), f"tracking failed on frames {np.flatnonzero(~ok).tolist()}")
-    check(ate < cfg.tsdf.voxel_size, f"ATE {ate} >= voxel {cfg.tsdf.voxel_size}")
-    for k, per in PER_FRAME.items():
-        check(launches[k] == per * n,
-              f"{k} launched {launches[k]} times, expected {per} x {n}")
+    check(ok.all(), f"{name}: tracking failed on frames {np.flatnonzero(~ok).tolist()}")
+    check(ate < cfg.tsdf.voxel_size, f"{name}: ATE {ate} >= voxel {cfg.tsdf.voxel_size}")
+    for k, expect in {**{k: per * n for k, per in PER_FRAME.items()}, "K7": n_seg}.items():
+        check(launches[k] == expect,
+              f"{name}: {k} launched {launches[k]} times, expected {expect}")
     return state, launches
+
+
+def instance_checks(cfg, state, frame):
+    """The instance table is populated and the labels fused into the map,
+    read back at the final prediction, cover more than 30% of the view and
+    agree with the ground truth above 0.9 under the majority id mapping."""
+    from instancefusion_tpu_torch.ops import labels
+
+    table = state.table
+    n_active, n_match = int(table.active.sum()), int(table.matches.sum())
+    overflow = int(table.overflow)
+    pred_gid = labels.sample_nearest(state.votes, state.volume, state.pred.vertex_w,
+                                     state.pred.valid, cfg.tsdf).cpu().numpy()
+    gt = frame.instance.cpu().numpy()
+    ok = (pred_gid >= 0) & (gt >= 0) & state.pred.valid.cpu().numpy()
+    agree = 0
+    for g in np.unique(pred_gid[ok]):
+        agree += np.unique(gt[ok & (pred_gid == g)], return_counts=True)[1].max()
+    coverage, accuracy = float(ok.mean()), float(agree / max(ok.sum(), 1))
+    print(f"instance table: {n_active} active rows, {n_match} matches, overflow "
+          f"{overflow}; fused labels at the final prediction: coverage {coverage!r}, "
+          f"accuracy {accuracy!r} (majority mapping)", flush=True)
+    check(n_active >= 3, f"only {n_active} active instance rows")
+    check(n_match > 0, "no mask matched an instance")
+    check(overflow == 0, f"instance table overflowed by {overflow}")
+    check(coverage > 0.3, f"labels cover only {coverage} of the view")
+    check(accuracy > 0.9, f"labels agree with the ground truth on only {accuracy}")
+
+
+def grouping_stable(outs, k, seg) -> bool:
+    """Whether the grouping `seg` of the head outputs `outs` survives
+    HEAD_TRIALS seeded uniform perturbations of the outputs by up to
+    HEAD_EPS: mask_id equal on >= 99.9% of pixels, classes and validity
+    equal.  Where the heatmap holds plateaus of tied peak scores it does
+    not: which peaks are kept, and in what order, then hinges on
+    differences below the card's rounding."""
+    from instancefusion_tpu_torch.models import segmentation as segm
+
+    gen = torch.Generator(device=outs[0].device)
+    for trial in range(HEAD_TRIALS):
+        gen.manual_seed(trial)
+        noisy = [x + HEAD_EPS * (2 * torch.rand(x.shape, generator=gen, device=x.device) - 1)
+                 for x in outs]
+        alt = segm.extract_instances(*noisy, k, center_thresh=-2.0)
+        if not (float((alt.mask_id == seg.mask_id).float().mean()) >= 0.999
+                and torch.equal(alt.classes, seg.classes)
+                and torch.equal(alt.valid, seg.valid)):
+            return False
+    return True
+
+
+def head_phase(cfg, state, frames, next_frame, card):
+    """The packaged head on the card against the same head on the CPU, then
+    one ``step_seg`` on a head segmentation of `next_frame`; returns the
+    head's ms per call.
+
+    The card's outputs must be within 1e-3 of the CPU's, and the grouping of
+    the same outputs must agree on both, on every frame compared.  The card's
+    segmentation must equal the CPU head's own (mask_id on >= 99.5% of
+    pixels, classes and validity) on HEAD_FRAMES frames whose grouping is
+    stable (``grouping_stable``); on the first unstable frame the same
+    comparison is printed, not held."""
+    from instancefusion_tpu_torch.models import segmentation as segm
+
+    k = cfg.instances.max_instances
+    head = segm.load_pretrained()
+    head_cpu = segm.load_pretrained(device="cpu")
+    stable = []
+    with torch.no_grad():
+        for i, f in enumerate(frames):
+            outs = head(f.color)
+            if grouping_stable(outs, k, segm.extract_instances(*outs, k, center_thresh=-2.0)):
+                stable.append(i)
+    print(f"head: grouping stable under output perturbations of up to {HEAD_EPS} on "
+          f"{len(stable)} of {len(frames)} frames: {stable}", flush=True)
+    check(len(stable) >= HEAD_FRAMES, f"head grouping stable on only {len(stable)} frames")
+    picks = [stable[j] for j in np.linspace(0, len(stable) - 1, HEAD_FRAMES).round().astype(int)]
+    unstable = [i for i in range(len(frames)) if i not in stable]
+    for i in picks + unstable[:1]:
+        rgb = frames[i].color
+        with torch.no_grad():
+            outs = head(rgb)
+            refs = head_cpu(rgb.cpu())
+        errs = [(a.cpu() - b).abs().max().item() for a, b in zip(outs, refs)]
+        # Grouping held on identical head outputs: on the card and on the CPU.
+        seg = segm.extract_instances(*outs, k, center_thresh=-2.0)
+        ref = segm.extract_instances(*(x.cpu() for x in outs), k, center_thresh=-2.0)
+        same = float((seg.mask_id.cpu() == ref.mask_id).float().mean())
+        # End to end: the CPU head's own segmentation.
+        own = segm.segment(head_cpu, rgb.cpu(), k)
+        same_e2e = float((seg.mask_id.cpu() == own.mask_id).float().mean())
+        cls_e2e = torch.equal(seg.classes.cpu(), own.classes)
+        valid_e2e = torch.equal(seg.valid.cpu(), own.valid)
+        gated = i in picks
+        print(f"head on frame {i} ({'stable, held' if gated else 'unstable, printed'}): "
+              f"sem/center/offset max abs err vs CPU {errs}; grouping of the same "
+              f"outputs on the CPU: mask_id equal on {same!r}, {int(ref.valid.sum())} "
+              f"instances; CPU head end to end: mask_id equal on {same_e2e!r}, classes "
+              f"equal {cls_e2e}, valid equal {valid_e2e}, {int(seg.valid.sum())} vs "
+              f"{int(own.valid.sum())} instances", flush=True)
+        check(max(errs) <= 1e-3, f"head outputs differ from the CPU head by {errs}")
+        check(same >= 0.995, f"grouping mask_id equal on only {same} of pixels")
+        check(torch.equal(seg.classes.cpu(), ref.classes)
+              and torch.equal(seg.valid.cpu(), ref.valid),
+              "grouping classes or validity differ from the CPU")
+        if gated:
+            check(same_e2e >= 0.995 and cls_e2e and valid_e2e,
+                  f"frame {i}: the card's segmentation differs from the CPU head's "
+                  f"(mask_id equal on {same_e2e}, classes {cls_e2e}, valid {valid_e2e})")
+    rgb = next_frame.color
+    head_ms = time_ms(lambda: segm.segment(head, rgb, k), 10)
+    print(f"head: {head_ms!r} ms per segment call at {tuple(rgb.shape[:2])} "
+          f"(forward + extract_instances, K={k}) [{card}]", flush=True)
+    seg = segm.segment(head, rgb, k)
+    state, info = step(cfg, state, next_frame, seg)
+    check(bool(info.track_ok), "step_seg on a head segmentation failed to track")
+    check(bool(torch.isfinite(state.table.score).all()), "non-finite instance scores")
+    print(f"step_seg on a head segmentation: tracked, {int(seg.valid.sum())} masks, "
+          f"{int(state.table.active.sum())} active rows", flush=True)
+    return head_ms
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -180,6 +345,20 @@ def bound_ms(n_bytes: float, n_flops: float):
     fp32 operations over the fp32 peak; returns (ms, what bounds it)."""
     t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_PER_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def band_reads(coords, slots, valid, depth, T_wc, intr, tcfg):
+    """Per voxel of the valid listed rows: camera depth z, pixel index,
+    whether the pixel is in view, and the depth there (the projective
+    association that K4 and K7 make)."""
+    from instancefusion_tpu_torch.ops.kernels.labels import project_voxels
+
+    z, pix, seen = project_voxels(coords, slots[valid], T_wc, intr, tcfg)
+    return z, pix, seen, depth.reshape(-1)[pix]
+
+
+def n_distinct(pix, mask) -> int:
+    return int(torch.unique(pix[mask]).numel())
 
 
 def record(k, launches, err, ms, plain_ms, n_bytes, n_flops, library_ms, note):
@@ -282,17 +461,23 @@ def kernel_phase(cfg, state, frame, launches):
         share.append(float((d.reshape(n_valid, -1, 512) <= tol).all(1).float().mean()))
     check(min(share) >= 0.999, f"K4 agrees on only {share} of voxels")
     b3 = cfg.tsdf.block_size ** 3
-    k4_bytes = (k * 5 + n_valid * 12 + n_valid * b3 * 4 * (2 + 2 + 6)
-                + hw * 4 + hw * 12)
+    # Bytes this frame needs: the list, the valid rows' coordinates, sdf,
+    # weight and color read and written at the voxels that fuse, depth at
+    # the pixels the voxels project to, color where they fuse.
+    z, pix, seen, dz = band_reads(vol.block_coords, slots, valid, d0, T, intr, cfg.tsdf)
+    fused = seen & (dz > 0.0) & (dz - z > -cfg.tsdf.trunc)
+    n_fused = int(fused.sum())
+    k4_bytes = (k * 5 + n_valid * 12 + 64 + n_fused * 4 * 2 * (1 + 1 + 3)
+                + n_distinct(pix, seen) * 4 + n_distinct(pix, fused) * 12)
     bench_maps = [m.clone() for m in maps_k]
     recs.append(record(
         "K4", launches, max(errs),
         time_ms(lambda: ktsdf.integrate(vol.block_coords, *bench_maps, *integ), 100),
         time_ms(lambda: ktsdf.integrate_ref(vol.block_coords, *bench_maps, *integ), 10),
         k4_bytes, 40.0 * n_valid * b3, None,
-        f"K={k} listed, {n_valid} valid slots x {b3} voxels, color frame; "
-        f"max err sdf/weight/color {errs}, share within 5e-4/1e-5/5e-3 {share}; "
-        f"tolerance: >= 99.9% of voxels",
+        f"K={k} listed, {n_valid} valid slots x {b3} voxels, {n_fused} fuse, color "
+        f"frame; max err sdf/weight/color {errs}, share within 5e-4/1e-5/5e-3 "
+        f"{share}; tolerance: >= 99.9% of voxels",
     ))
 
     # K5 on the integrated map, as the main path runs it (no color).
@@ -334,10 +519,90 @@ def kernel_phase(cfg, state, frame, launches):
     return recs
 
 
+def preprocess_record(cfg, frame, launches):
+    """K1 against its plain version on the frame's raw depth."""
+    from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
+
+    intr, pcfg = cfg.intrinsics, cfg.preprocess
+    out = kpre.fused_preprocess(frame.depth, intr, pcfg)
+    ref = kpre.fused_preprocess_ref(frame.depth, intr, pcfg)
+    v = ref[3]
+    errs = [(out[i] - ref[i]).abs().max().item() for i in (0, 1)]
+    n_err = (out[2] - ref[2])[v].abs().max().item()
+    mism = int((out[3] != ref[3]).sum())
+    check(max(errs) <= 1e-5, f"K1 df/vmap differ from the plain version by {errs}")
+    check(mism == 0, f"K1 valid differs from the plain version on {mism} pixels")
+    check(n_err <= 1e-3, f"K1 nmap differs from the plain version by {n_err}")
+    hw = intr.height * intr.width
+    return record(
+        "K1", launches, max(errs + [n_err]),
+        time_ms(lambda: kpre.fused_preprocess(frame.depth, intr, pcfg), 200),
+        time_ms(lambda: kpre.fused_preprocess_ref(frame.depth, intr, pcfg), 20),
+        hw * (4 + 4 + 12 + 12 + 1), PREPROCESS_FLOPS_PER_PIXEL * hw, None,
+        f"{intr.height}x{intr.width}, radius {pcfg.bilateral_radius}, "
+        f"{int(v.sum())} valid pixels; df/vmap max err {errs}, nmap max err "
+        f"{n_err!r} on valid pixels, valid mismatches {mism}; tolerance: df and "
+        f"vmap 1e-5, valid equal, nmap 1e-3 on valid pixels; library: none "
+        f"(a bilateral filter is no single PyTorch call)",
+    )
+
+
+def label_vote_record(cfg, state, frame, launches):
+    """K7 against its plain version on the frame's touched blocks, with the
+    id image the instance path would vote (refined GT masks associated
+    against the map's labels)."""
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.engine import instances as inst
+    from instancefusion_tpu_torch.ops import blocks, labels
+    from instancefusion_tpu_torch.ops.kernels import labels as klab
+
+    intr, tcfg = cfg.intrinsics, cfg.tsdf
+    seg = synthetic.gt_segmentation(frame.instance, cfg.instances.max_instances)
+    seg = seg._replace(mask_id=labels.refine_mask_edges(seg.mask_id, frame.depth, intr=intr))
+    pred_gid = labels.sample_nearest(state.votes, state.volume, state.pred.vertex_w,
+                                     state.pred.valid, tcfg)
+    gid, _ = inst.associate(state.table, seg, pred_gid, cfg.instances)
+    touched = blocks.touched_blocks_mask(frame.depth, frame.T_wc, intr, tcfg)
+    k = min(8192, blocks.num_blocks_per_axis(tcfg) ** 3)
+    slots, valid = blocks.compact_touched_slots(state.volume, touched, tcfg, k)
+    coords = state.volume.block_coords
+    args = (slots, valid, frame.depth, gid, frame.T_wc, intr, tcfg)
+    planes_k = [state.votes.label.clone(), state.votes.count.clone()]
+    planes_r = [x.clone() for x in planes_k]
+    klab.label_vote(coords, *planes_k, *args)
+    klab.label_vote_ref(coords, *planes_r, *args)
+    rows = slots[valid].long()
+    n_valid = int(rows.shape[0])
+    shares = [float((a[rows] == b[rows]).float().mean()) for a, b in zip(planes_k, planes_r)]
+    voted = int((planes_r[1][rows] != state.votes.count[rows]).sum())
+    err = (planes_k[1][rows] - planes_r[1][rows]).abs().max().item()
+    check(min(shares) >= 0.999, f"K7 agrees on only {shares} of voxels")
+    b3 = tcfg.block_size**3
+    # Bytes this frame needs: the list, the valid rows' coordinates, label
+    # and count read and written at the observed voxels, depth at the pixels
+    # the voxels project to, ids where the depth lies within the band.
+    z, pix, seen, dz = band_reads(coords, slots, valid, frame.depth, frame.T_wc, intr, tcfg)
+    band = seen & (dz > 0.0) & ((dz - z).abs() < tcfg.trunc)
+    n_obs = int((band & (gid.reshape(-1)[pix] >= 0)).sum())
+    n_bytes = (k * 5 + n_valid * 12 + 64 + n_obs * 4 * 2 * 2
+               + n_distinct(pix, seen) * 4 + n_distinct(pix, band) * 4)
+    bench = [x.clone() for x in planes_k]
+    return record(
+        "K7", launches, err,
+        time_ms(lambda: klab.label_vote(coords, *bench, *args), 100),
+        time_ms(lambda: klab.label_vote_ref(coords, *bench, *args), 10),
+        n_bytes, VOTE_FLOPS_PER_VOXEL * n_valid * b3, None,
+        f"K={k} listed, {n_valid} valid slots x {b3} voxels, {n_obs} observed, "
+        f"{voted} voted; label/count equal on {shares} of the valid slots' voxels; "
+        f"tolerance: >= 99.9% of voxels; library: none (no single PyTorch call)",
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
     from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.models.segmentation import PRETRAINED_SYNTHETIC
     from instancefusion_tpu_torch.ops.kernels import _build
 
     card = card_line()
@@ -360,8 +625,15 @@ def main() -> None:
     frames = [synthetic.render_frame(poses[i], cfg.intrinsics) for i in range(n + 1)]
     torch.cuda.synchronize()
 
-    state, launches = run_main_path(cfg, frames[:n], poses[:n], card)
-    recs = kernel_phase(cfg, state, frames[n], launches)
+    state, launches = run_path(cfg, frames[:n], poses[:n], card, "main path")
+    icfg = instance_config(PRETRAINED_SYNTHETIC["num_classes"])
+    istate, ilaunches = run_path(icfg, frames[:n], poses[:n], card, "instance path",
+                                 seg_every=2)
+    instance_checks(icfg, istate, frames[n - 1])
+    recs = [preprocess_record(cfg, frames[n], launches)]
+    recs += kernel_phase(cfg, state, frames[n], launches)
+    recs.append(label_vote_record(icfg, istate, frames[n], ilaunches))
+    head_phase(icfg, istate, frames[:n], frames[n], card)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

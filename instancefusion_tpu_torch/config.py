@@ -6,10 +6,9 @@ Knobs that change results keep their meaning.  Knobs that pick a TPU
 implementation do not apply here: the port picks its implementation by the
 device the tensors live on (the hand-written CUDA kernels on a CUDA tensor,
 their plain PyTorch versions on a CPU tensor), so ``IcpConfig.use_pallas``,
-``TsdfConfig.use_pallas``, ``TsdfConfig.bin_groups`` and
-``TsdfConfig.group_capacity`` are carried for parity and not read.
-``PreprocessConfig.use_pallas`` asks for the fused preprocess kernel, which
-the port does not have yet: the engine raises when it is set.
+``TsdfConfig.use_pallas``, ``TsdfConfig.bin_groups``,
+``TsdfConfig.group_capacity`` and ``PreprocessConfig.use_pallas`` are
+carried for parity and not read.
 """
 
 from __future__ import annotations

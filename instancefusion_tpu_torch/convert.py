@@ -1,32 +1,42 @@
-"""Engine state to and from numpy arrays.
+"""Engine state and head weights to and from numpy arrays.
 
-The slice has no learned weights: its "weights" are the map and the poses.
-The arrays are keyed by the state's field path, e.g. ``"T_wc"``,
-``"volume.sdf"``, ``"pred.depth"``, the same names for this package's
-``SlamState`` and the reference's, so a run of either engine can be
-carried into the other mid-sequence.
+State arrays are keyed by the state's field path, e.g. ``"T_wc"``,
+``"volume.sdf"``, ``"pred.depth"``, ``"votes.label"``, ``"table.cls"``, the
+same names for this package's ``SlamState`` and the reference's, so a run
+of either engine can be carried into the other mid-sequence.  The
+segmentation head's weights come across from the reference's flax
+checkpoint by ``seghead_from_flax``.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
 from instancefusion_tpu_torch import device as _device
 from instancefusion_tpu_torch.config import EngineConfig
+from instancefusion_tpu_torch.engine.instances import InstanceTable
 from instancefusion_tpu_torch.engine.slam import SlamState
 from instancefusion_tpu_torch.ops.blocks import BlockMap
+from instancefusion_tpu_torch.ops.labels import LabelVotes
 from instancefusion_tpu_torch.ops.raycast import RaycastMaps
 
 _TOP = ("T_wc", "pred_T_wc", "frame_idx", "lost_frames", "T_prev_wc")
+_GROUPS = (("volume", BlockMap), ("pred", RaycastMaps), ("votes", LabelVotes),
+           ("table", InstanceTable))
 
 
 def state_to_numpy(state: SlamState) -> dict[str, np.ndarray]:
-    """Every tensor of the state as a numpy array, keyed by field path."""
+    """Every tensor of the state as a numpy array, keyed by field path;
+    ``votes.*`` and ``table.*`` only where the state carries instances."""
     out = {name: getattr(state, name).cpu().numpy() for name in _TOP}
-    for prefix, group in (("volume", state.volume), ("pred", state.pred)):
-        for name, t in group._asdict().items():
-            out[f"{prefix}.{name}"] = t.cpu().numpy()
+    for prefix, _ in _GROUPS:
+        group = getattr(state, prefix)
+        if group is not None:
+            for name, t in group._asdict().items():
+                out[f"{prefix}.{name}"] = t.cpu().numpy()
     return out
 
 
@@ -37,14 +47,49 @@ def state_from_numpy(arrays: dict, cfg: EngineConfig, device=None) -> SlamState:
     def get(name):
         return torch.as_tensor(np.array(arrays[name]), device=dev)
 
+    groups = {}
+    for prefix, cls in _GROUPS:
+        if f"{prefix}.{cls._fields[0]}" in arrays:
+            groups[prefix] = cls(**{f: get(f"{prefix}.{f}") for f in cls._fields})
     nb = cfg.tsdf.grid_size // cfg.tsdf.block_size
-    volume = BlockMap(**{f: get(f"volume.{f}") for f in BlockMap._fields})
-    if volume.directory.shape != (nb, nb, nb):
-        raise ValueError(f"directory shape {tuple(volume.directory.shape)} does "
-                         f"not match the configuration's {(nb, nb, nb)}")
-    return SlamState(
-        **{name: get(name) for name in _TOP},
-        volume=volume,
-        pred=RaycastMaps(**{f: get(f"pred.{f}") for f in RaycastMaps._fields}),
-        frame_count=int(arrays["frame_idx"]),
-    )
+    if groups["volume"].directory.shape != (nb, nb, nb):
+        raise ValueError(f"directory shape {tuple(groups['volume'].directory.shape)} "
+                         f"does not match the configuration's {(nb, nb, nb)}")
+    return SlamState(**{name: get(name) for name in _TOP}, **groups,
+                     frame_count=int(arrays["frame_idx"]))
+
+
+# flax ``_ConvBlock_<i>`` -> ``blocks.<i>``; the three 1x1 output convs.
+_HEAD_OUT = {"Conv_0": "sem", "Conv_1": "center", "Conv_2": "offset"}
+
+
+def seghead_from_flax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """A ``PanopticHead`` state dict from the reference's flax parameters.
+
+    ``arrays`` maps flax key paths as ``save_pretrained`` writes them, e.g.
+    ``"['params']['_ConvBlock_3']['Conv_0']['kernel']"`` (HWIO, fp16), to
+    arrays; the result holds fp32 tensors under the port's names
+    (``blocks.3.conv.weight``, OIHW).
+    """
+    out = {}
+    for key, value in arrays.items():
+        path = re.findall(r"\['([^']+)'\]", key)
+        if path[0] == "params":
+            path = path[1:]
+        if path[0].startswith("_ConvBlock_"):
+            i = int(path[0].rsplit("_", 1)[1])
+            layer = {"Conv_0": "conv", "GroupNorm_0": "norm"}[path[1]]
+            prefix = f"blocks.{i}.{layer}"
+        else:
+            prefix = _HEAD_OUT[path[0]]
+        leaf = path[-1]
+        x = torch.from_numpy(np.asarray(value, dtype=np.float32))
+        if leaf == "kernel":  # HWIO -> OIHW
+            out[f"{prefix}.weight"] = x.permute(3, 2, 0, 1).contiguous()
+        elif leaf == "scale":
+            out[f"{prefix}.weight"] = x
+        elif leaf == "bias":
+            out[f"{prefix}.bias"] = x
+        else:
+            raise ValueError(f"unexpected flax parameter {key}")
+    return out

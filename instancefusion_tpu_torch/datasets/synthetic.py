@@ -16,6 +16,7 @@ import torch
 
 from instancefusion_tpu_torch import device as _device
 from instancefusion_tpu_torch.geometry.camera import Intrinsics, ray_directions
+from instancefusion_tpu_torch.models.segmentation import Segmentation
 
 
 class Frame(NamedTuple):
@@ -116,6 +117,28 @@ def render_frame(T_wc, intr: Intrinsics, texture: bool = False, device=None) -> 
     color = torch.where(hit[..., None], base * shade[..., None], torch.zeros_like(base))
     instance = torch.where(hit, obj, torch.full_like(obj, -1))
     return Frame(depth=depth, color=color, instance=instance, T_wc=T_wc)
+
+
+def gt_segmentation(inst: torch.Tensor, k: int) -> Segmentation:
+    """A frame's ground-truth instance image (``Frame.instance``) as a K-slot
+    ``Segmentation``.
+
+    Object ids 0..3 (walls, sphere, box, cylinder) are the masks, with
+    class id + 1 and score 1 where present; slot 0 also counts as present
+    wherever a pixel has no id, as in the reference's tests.
+    """
+    dev = inst.device
+    ids = inst.clamp(0, k - 1).reshape(-1).long()
+    present = torch.zeros(k, dtype=torch.bool, device=dev).scatter_(
+        0, ids, torch.ones_like(ids, dtype=torch.bool))
+    slot = torch.arange(k, device=dev)
+    present = present & (slot < 4)
+    return Segmentation(
+        mask_id=torch.where(inst >= 0, inst, torch.full_like(inst, -1)).to(torch.int32),
+        classes=torch.where(present, slot + 1, torch.zeros_like(slot)).to(torch.int32),
+        scores=present.float(),
+        valid=present,
+    )
 
 
 def orbit_trajectory(num_frames: int, radius: float = 0.45, center=None,

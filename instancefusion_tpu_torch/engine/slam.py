@@ -1,12 +1,15 @@
 """SLAM engine main path: track -> fuse -> predict (port of ``engine/slam.py``).
 
-This slice ports the block-map engine with splat prediction
+The port runs the block-map engine with splat prediction
 (``map_kind="blocks"``, ``RaycastConfig.use_splat``), the configuration
-``bench.py`` times.  One frame runs: preprocess (plain), 3-level ICP
-(kernels K2 and K3), ``blocks.discover_allocate``, the in-frustum slot list,
-TSDF integrate (K4) and splat prediction (K5).  The dense map, the marched
-raycaster, instances, observation stamps and the consistency sentinel are
-later slices: configurations that ask for them raise.
+``bench.py`` times.  One frame runs: preprocess (kernel K1), 3-level ICP
+(K2 and K3), ``blocks.discover_allocate``, the in-frustum slot list, TSDF
+integrate (K4) and splat prediction (K5).  With ``use_instances`` (config3)
+a frame that carries a segmentation goes through ``step_seg``: the same
+step, then ``fuse_segmentation`` (mask refinement, predicted-id sampling,
+instance merges and association, label votes with K7).  The dense map,
+the marched raycaster, observation stamps and the consistency sentinel
+are later slices: configurations that ask for them raise.
 
 The state is a ``NamedTuple`` of tensors on one device, as in the
 reference.  ``step`` keeps everything on the device (no host read per
@@ -25,8 +28,10 @@ import torch
 
 from instancefusion_tpu_torch import device as _device
 from instancefusion_tpu_torch.config import EngineConfig
+from instancefusion_tpu_torch.engine import instances as inst
 from instancefusion_tpu_torch.geometry.se3 import se3_exp, se3_inverse, se3_log
-from instancefusion_tpu_torch.ops import blocks, icp, preprocess
+from instancefusion_tpu_torch.models.segmentation import Segmentation
+from instancefusion_tpu_torch.ops import blocks, icp, labels, preprocess
 from instancefusion_tpu_torch.ops.raycast import RaycastMaps
 
 
@@ -38,6 +43,9 @@ class SlamState(NamedTuple):
     frame_idx: torch.Tensor  # () i32
     lost_frames: torch.Tensor  # () i32 consecutive tracking failures
     T_prev_wc: torch.Tensor  # previous frame's pose (motion-model seed)
+    # Instance subsystem, None unless cfg.use_instances.
+    votes: labels.LabelVotes | None = None
+    table: inst.InstanceTable | None = None
     frame_count: int = 0  # host copy of frame_idx (color cadence)
 
 
@@ -54,7 +62,7 @@ def _check_supported(cfg: EngineConfig) -> None:
             "this port runs the block map with splat prediction only "
             "(map_kind='blocks', RaycastConfig(use_splat=True))"
         )
-    for flag in ("use_instances", "track_stamps", "consistency_check"):
+    for flag in ("track_stamps", "consistency_check"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"EngineConfig.{flag} is not ported yet")
     if cfg.num_shards != 1:
@@ -79,6 +87,10 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
         color=torch.zeros((h, w, 3), **f32),
         valid=torch.zeros((h, w), dtype=torch.bool, device=dev),
     )
+    votes = table = None
+    if cfg.use_instances:  # on the block map, which _check_supported ensures
+        votes = labels.allocate(cfg.tsdf, dev)
+        table = inst.allocate(cfg.instances, dev)
     return SlamState(
         T_wc=T0,
         volume=blocks.allocate(cfg.tsdf, dev, with_color=cfg.use_color),
@@ -87,6 +99,8 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
         frame_idx=torch.zeros((), dtype=torch.int32, device=dev),
         lost_frames=torch.zeros((), dtype=torch.int32, device=dev),
         T_prev_wc=T0.clone(),
+        votes=votes,
+        table=table,
     )
 
 
@@ -214,6 +228,55 @@ def step_gt(cfg: EngineConfig, state: SlamState, depth, color, T_gt_wc):
     info = StepInfo(inliers=zero, residual=zero, track_ok=fuse_ok,
                     fused_voxels=tsdf_integrate_count(d0))
     return new_state, info
+
+
+def step_seg(cfg: EngineConfig, state: SlamState, depth, color, seg: Segmentation):
+    """`step` + instance fusion for a frame that carries a segmentation.
+
+    Tracks, fuses and predicts as `step`, then applies the segmentation
+    with the frame's raw depth (zeroed if tracking failed) at the tracked
+    pose.  Like `step`, it updates the state in place: rebind it.
+    """
+    if not cfg.use_instances:
+        raise ValueError("step_seg requires cfg.use_instances")
+    new_state, info = step(cfg, state, depth, color)
+    depth = torch.as_tensor(depth, dtype=torch.float32, device=new_state.T_wc.device)
+    depth_gated = torch.where(info.track_ok, depth, torch.zeros_like(depth))
+    new_state = fuse_segmentation(cfg, new_state, seg, depth_gated, new_state.T_wc)
+    return new_state, info
+
+
+def fuse_segmentation(cfg: EngineConfig, state: SlamState, seg: Segmentation,
+                      depth, T_mc) -> SlamState:
+    """Apply a segmentation to the live state: the arrival half of `step_seg`.
+
+    ``seg`` lies on the state's device; ``depth`` is the segmented frame's
+    raw depth (pre-gated by its tracking), ``T_mc`` its tracked pose.
+    Steps: mask refinement against depth and normal edges, the
+    predicted-id image sampled from the votes at the prediction's hit
+    points, duplicate-row merges (table, votes and the predicted-id image),
+    mask-to-instance association with the table update, and the label
+    votes (K7).  The vote planes are updated in place.
+    """
+    if not cfg.use_instances:
+        raise ValueError("fuse_segmentation requires cfg.use_instances")
+    _device.resolve(state.T_wc.device)
+    depth = torch.as_tensor(depth, dtype=torch.float32, device=state.T_wc.device)
+    seg = seg._replace(mask_id=labels.refine_mask_edges(seg.mask_id, depth,
+                                                         intr=cfg.intrinsics))
+    pred_gid = labels.sample_nearest(state.votes, state.volume, state.pred.vertex_w,
+                                     state.pred.valid, cfg.tsdf)
+    # Merge duplicate rows before matching: a mask overlapping two predicted
+    # regions shows that they are one object.
+    src, dst, mok = inst.find_merges(state.table, seg, pred_gid, cfg.instances)
+    table = inst.apply_merges(state.table, src, dst, mok)
+    merged = labels.merge_table(src, dst, mok, cfg.instances.max_instances)
+    votes = labels.relabel_votes(state.votes, merged)
+    pred_gid = labels.apply_table(merged, pred_gid)
+    gid_image, table = inst.associate(table, seg, pred_gid, cfg.instances)
+    votes = labels.fuse(votes, state.volume, gid_image, depth, T_mc,
+                        cfg.intrinsics, cfg.tsdf)
+    return state._replace(votes=votes, table=table)
 
 
 def run_chunk(cfg: EngineConfig, state: SlamState, depths, colors):

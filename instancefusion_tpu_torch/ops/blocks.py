@@ -174,6 +174,53 @@ def compact_mask_indices(mask: torch.Tensor, k: int, fill: int = 0):
     return idx, torch.arange(k, device=mask.device) < count
 
 
+def touched_blocks_mask(depth: torch.Tensor, T_wc: torch.Tensor, intr: Intrinsics,
+                        cfg: TsdfConfig, samples: int = 5, stride: int = 1) -> torch.Tensor:
+    """Blocks intersected by this frame's truncation band: bool[Nb^3].
+
+    Samples every `stride`-th pixel's ray at `samples` depths spanning
+    [-trunc-voxel, +trunc+voxel] around the measurement and marks the
+    containing blocks, by a scatter of ones (out-of-grid samples land in a
+    spill element that is cut off).
+    """
+    nb = num_blocks_per_axis(cfg)
+    nb3 = nb * nb * nb
+    rays = decimate(ray_directions(intr, depth.device), stride)
+    depth = decimate(depth, stride)
+    R, o = T_wc[:3, :3], T_wc[:3, 3]
+    dirs_w = rays.reshape(-1, 3) @ R.T
+    d = depth.reshape(-1)
+    valid = d > 0.0
+    band = cfg.trunc + cfg.voxel_size
+    offs = torch.linspace(-band, band, samples, device=depth.device)
+    bsz = cfg.block_size * cfg.voxel_size
+    flats = []
+    for i in range(samples):
+        p = o[None, :] + dirs_w * (d + offs[i])[:, None]
+        g = torch.stack(
+            [torch.floor((p[:, a] - cfg.origin[a]) / bsz) for a in range(3)], -1
+        ).to(torch.int32)
+        inb = torch.all((g >= 0) & (g < nb), dim=-1) & valid
+        flat = (g[:, 0] * nb + g[:, 1]) * nb + g[:, 2]
+        flats.append(torch.where(inb, flat, torch.full_like(flat, nb3)))
+    flat = torch.cat(flats).long()
+    mask = torch.zeros(nb3 + 1, dtype=torch.bool, device=depth.device)
+    mask.scatter_(0, flat, torch.ones_like(flat, dtype=torch.bool))
+    return mask[:nb3]
+
+
+def compact_touched_slots(bm: BlockMap, touched: torch.Tensor, cfg: TsdfConfig, k: int):
+    """Static-size list of the payload slots of touched, allocated blocks.
+
+    Returns (slots i32[k], valid bool[k]); touched blocks beyond k, and
+    touched blocks without a slot, are skipped (invalid entries hold 0).
+    """
+    idx, tvalid = compact_mask_indices(touched, k)
+    slots = bm.directory.reshape(-1)[idx.long()]
+    valid = tvalid & (slots >= 0)
+    return torch.where(valid, slots, torch.zeros_like(slots)), valid
+
+
 def frustum_mask(bm: BlockMap, T_wc, intr: Intrinsics, cfg: TsdfConfig,
                  near: float, far: float) -> torch.Tensor:
     """Allocated blocks whose center is inside the view frustum: bool[C]."""

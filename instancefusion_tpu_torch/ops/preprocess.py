@@ -1,9 +1,10 @@
 """Frame preprocessing: bilateral filter, vertex/normal maps, pyramids.
 
-Port of ``ops/preprocess.py`` as plain tensor code.  The reference runs
-level 0 as one fused Pallas pass when ``PreprocessConfig.use_pallas`` is
-set; that kernel is not ported yet, so this module raises on the flag
-rather than quietly running something else.
+Port of ``ops/preprocess.py``.  Level 0 of the pyramid (clamp, bilateral,
+vertex and normal maps) runs as one CUDA kernel, K1
+(``ops/kernels/preprocess.py``), for a CUDA tensor and as the plain code
+below for a CPU tensor; coarser levels are plain, as in the reference.
+``PreprocessConfig.use_pallas`` is carried for parity and not read.
 
 Invalid depth is encoded as 0 (TUM convention); every op propagates it.
 """
@@ -15,6 +16,7 @@ import torch
 from instancefusion_tpu_torch.config import PreprocessConfig
 from instancefusion_tpu_torch.geometry.camera import Intrinsics, backproject
 from instancefusion_tpu_torch.ops.common import interior
+from instancefusion_tpu_torch.ops.kernels import preprocess as k1
 
 
 def clamp_depth(depth: torch.Tensor, cfg: PreprocessConfig) -> torch.Tensor:
@@ -105,23 +107,20 @@ def build_frame_pyramid(
     levels: int,
     intensity: torch.Tensor | None = None,
 ):
-    """Clamp -> bilateral -> per-level vertex/normal maps.
+    """Clamp -> bilateral -> per-level vertex/normal maps (level 0 by K1).
 
     Returns a list over levels (fine -> coarse) of dicts with keys
     'depth', 'vmap', 'nmap', 'valid', and 'intensity' when given.
     """
-    if cfg.use_pallas:
-        raise NotImplementedError(
-            "the fused preprocess kernel is not ported yet; "
-            "run with PreprocessConfig(use_pallas=False)"
-        )
-    d = bilateral_filter(clamp_depth(depth, cfg), cfg)
+    d, vmap, nmap, valid = k1.fused_preprocess(depth, intr, cfg)
     i = intensity
     out = []
     for lvl in range(levels):
-        vmap = backproject(intr.level(lvl), d)
-        nmap, nvalid = compute_normals(vmap)
-        entry = {"depth": d, "vmap": vmap, "nmap": nmap, "valid": (d > 0.0) & nvalid}
+        if lvl > 0:
+            vmap = backproject(intr.level(lvl), d)
+            nmap, nvalid = compute_normals(vmap)
+            valid = (d > 0.0) & nvalid
+        entry = {"depth": d, "vmap": vmap, "nmap": nmap, "valid": valid}
         if i is not None:
             entry["intensity"] = i
         out.append(entry)

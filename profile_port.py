@@ -2,19 +2,26 @@
 
     python3 profile_port.py [--frames N]
 
-Runs the main path at the configuration chip_smoke.py uses (``bench.py``'s,
-with the plain preprocess) on the synthetic orbit, after 3 warm-up frames:
+Runs the main path at the configuration chip_smoke.py uses (``bench.py``'s)
+on the synthetic orbit, after 3 warm-up frames:
 
 0. end to end: N frames of ``slam.step``, untraced, synchronized once at
    the end (wall ms per frame);
-1. per layer: each stage of ``slam.step`` (preprocess, ICP, block
-   allocation, slot list, integrate, splat prediction) called in turn
-   through the port's public functions, with a device synchronize after
-   each, so every stage's wall time is its own;
-2. per kernel: ``torch.profiler`` over the same frames run by
-   ``slam.step`` unsynchronized, giving device time by kernel name, the
-   number of kernel launches per frame and the device's busy share of the
-   window.
+1. per layer: each stage of ``slam.step`` (preprocess, with K1 also timed
+   alone, ICP, block allocation, slot list, integrate, splat prediction)
+   called in turn through the port's public functions, with a
+   device synchronize after each, so every stage's wall time is its own;
+2. per kernel: ``torch.profiler`` over N more frames run by ``slam.step``
+   unsynchronized, giving device time by kernel name, the number of kernel
+   launches per frame and the device's busy share of the window;
+3. the instance path (chip_smoke.py's instance configuration, ground-truth
+   masks on every frame): N frames of ``slam.step_seg`` untraced, then the
+   stages of a segmented frame synchronized one by one (the packaged head
+   at 640x480, the step, and ``fuse_segmentation`` split into mask
+   refinement, predicted-id sampling, merges, association and the label
+   vote: touched list + K7), then part 2 for ``slam.step_seg``, and the
+   head alone (forward, forward with float64 GroupNorm statistics for
+   comparison, grouping, the whole ``segment`` call).
 
 Prints a table per part, the card's name and power limit, and as its last
 line one JSON object with every number.
@@ -28,7 +35,7 @@ import time
 
 import torch
 
-from chip_smoke import bench_config, card_line
+from chip_smoke import bench_config, card_line, instance_config
 
 
 def stages(cfg, state, frame):
@@ -36,6 +43,7 @@ def stages(cfg, state, frame):
     (times, the state after the frame)."""
     from instancefusion_tpu_torch.engine import slam
     from instancefusion_tpu_torch.ops import blocks, icp, preprocess
+    from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
 
     intr, out = cfg.intrinsics, {}
 
@@ -47,6 +55,8 @@ def stages(cfg, state, frame):
         out[name] = (time.perf_counter() - t0) * 1e3
         return result
 
+    # K1 alone first; the preprocess stage (the whole pyramid) runs it again.
+    timed("k1", lambda: kpre.fused_preprocess(frame.depth, intr, cfg.preprocess))
     pyr = timed("preprocess", lambda: preprocess.build_frame_pyramid(
         frame.depth, intr, cfg.preprocess, cfg.icp.levels))
     res = timed("icp", lambda: icp.track(
@@ -72,14 +82,119 @@ def stages(cfg, state, frame):
         frame_idx=state.frame_idx + 1, frame_count=state.frame_count + 1)
 
 
+def instance_stages(cfg, state, frame, head):
+    """One segmented frame's instance stages, timed one by one (ms); returns
+    (times, the state after the frame)."""
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.engine import instances as inst
+    from instancefusion_tpu_torch.engine import slam
+    from instancefusion_tpu_torch.models import segmentation as segm
+    from instancefusion_tpu_torch.ops import labels
+
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return result
+
+    k = cfg.instances.max_instances
+    timed("head", lambda: segm.segment(head, frame.color, k))
+    state, info = timed("step", lambda: slam.step(cfg, state, frame.depth, frame.color))
+    depth = torch.where(info.track_ok, frame.depth, torch.zeros_like(frame.depth))
+    seg = synthetic.gt_segmentation(frame.instance, k)
+    seg = timed("refine", lambda: seg._replace(mask_id=labels.refine_mask_edges(
+        seg.mask_id, depth, intr=cfg.intrinsics)))
+    pred_gid = timed("sample", lambda: labels.sample_nearest(
+        state.votes, state.volume, state.pred.vertex_w, state.pred.valid, cfg.tsdf))
+
+    def merges():
+        src, dst, ok = inst.find_merges(state.table, seg, pred_gid, cfg.instances)
+        table = inst.apply_merges(state.table, src, dst, ok)
+        merged = labels.merge_table(src, dst, ok, k)
+        labels.relabel_votes(state.votes, merged)
+        return table, labels.apply_table(merged, pred_gid)
+
+    table, pred_gid = timed("merges", merges)
+    gid, table = timed("associate", lambda: inst.associate(table, seg, pred_gid,
+                                                           cfg.instances))
+    votes = timed("label_vote", lambda: labels.fuse(
+        state.votes, state.volume, gid, depth, state.T_wc, cfg.intrinsics, cfg.tsdf))
+    return out, state._replace(votes=votes, table=table)
+
+
+def head_times(head, rgb, k):
+    """The head's ms per call, mean stream time by CUDA events: forward,
+    forward with its GroupNorm statistics in float64 instead (for
+    comparison), ``extract_instances`` alone, and ``segment``."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from chip_smoke import time_ms
+    from instancefusion_tpu_torch.models import segmentation as segm
+
+    def group_norm_float64(x, norm):
+        return F.group_norm(x.double(), norm.num_groups, norm.weight.double(),
+                            norm.bias.double(), norm.eps).to(x.dtype)
+
+    with torch.no_grad():
+        outs = head(rgb)
+        out = {"forward": time_ms(lambda: head(rgb), 20)}
+        with mock.patch.object(segm, "_group_norm", group_norm_float64):
+            out["forward_gn_float64"] = time_ms(lambda: head(rgb), 20)
+        out["extract_instances"] = time_ms(
+            lambda: segm.extract_instances(*outs, k, center_thresh=-2.0), 20)
+        out["segment"] = time_ms(lambda: segm.segment(head, rgb, k), 20)
+    return out
+
+
+def device_profile(step_fn, state, frames):
+    """``torch.profiler`` over ``state = step_fn(state, frame)`` on `frames`,
+    unsynchronized; returns the state and the window's device time by
+    kernel name, busy share and device ops per frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f in frames:
+            state = step_fn(state, f)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0.0)
+        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.key] = (dev_us / 1e3 / n, ev.count / n)
+    busy_ms = sum(ms for ms, _ in kernels.values()) * n
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
+    return state, {
+        "window_ms_per_frame": wall_ms / n, "device_busy_share": busy_ms / wall_ms,
+        "device_ops_per_frame": sum(c for _, c in kernels.values()),
+        "kernels": {k: {"ms_per_frame": v[0], "per_frame": v[1]} for k, v in top},
+    }
+
+
+def report_profile(name, prof, n):
+    print(f"traced {name}: {n} frames at {prof['window_ms_per_frame']!r} ms/frame, "
+          f"device busy {prof['device_busy_share']!r} of the window, "
+          f"{prof['device_ops_per_frame']!r} device ops per frame")
+    for kname, v in prof["kernels"].items():
+        print(f"  {v['ms_per_frame']:10.4f} ms/frame  {v['per_frame']:7.1f}/frame  "
+              f"{kname[:110]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=12)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port.py needs an NVIDIA GPU")
-    from torch.profiler import ProfilerActivity, profile
-
     from instancefusion_tpu_torch.datasets import synthetic
     from instancefusion_tpu_torch.engine import slam
 
@@ -110,37 +225,55 @@ def main() -> None:
     stage_ms = {k: sorted(s[k] for s in per_stage)[n // 2] for k in names}
 
     # 2. device time by kernel over n unsynchronized steps.
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for f in frames[warm + 2 * n:]:
-            state, _ = slam.step(cfg, state, f.depth, f.color)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if dev_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[ev.key] = (dev_us / 1e3 / n, ev.count / n)
-    busy_ms = sum(ms for ms, _ in kernels.values()) * n
-    launches = sum(c for _, c in kernels.values())
-
+    state, main_dev = device_profile(
+        lambda st, f: slam.step(cfg, st, f.depth, f.color)[0], state,
+        frames[warm + 2 * n:])
     print(f"untraced slam.step: {step_ms!r} ms/frame over {n} frames")
     print(f"stages (median of {n} frames, each synchronized, ms): "
           + ", ".join(f"{k} {v!r}" for k, v in stage_ms.items())
-          + f"; sum {sum(stage_ms.values())!r}")
-    print(f"traced window: {n} frames in {wall_ms!r} ms ({wall_ms / n!r} ms/frame), "
-          f"device busy {busy_ms!r} ms ({busy_ms / wall_ms!r} of the window), "
-          f"{launches!r} device ops per frame")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]
-    for name, (ms, count) in top:
-        print(f"  {ms:10.4f} ms/frame  {count:7.1f}/frame  {name[:110]}")
+          + f"; sum without k1 (inside preprocess) "
+          f"{sum(v for k, v in stage_ms.items() if k != 'k1')!r}")
+    report_profile("slam.step", main_dev, n)
+    # 3. the instance path.
+    from instancefusion_tpu_torch.datasets.synthetic import gt_segmentation
+    from instancefusion_tpu_torch.models import segmentation as segm
+
+    head = segm.load_pretrained()
+    icfg = instance_config(head.num_classes)
+    k = icfg.instances.max_instances
+    istate = slam.init_state(icfg, poses[0])
+    for f in frames[:warm]:
+        istate, _ = slam.step_seg(icfg, istate, f.depth, f.color,
+                                  gt_segmentation(f.instance, k))
+    segs = [gt_segmentation(f.instance, k) for f in frames[warm:warm + n]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f, seg in zip(frames[warm:warm + n], segs):
+        istate, _ = slam.step_seg(icfg, istate, f.depth, f.color, seg)
+    torch.cuda.synchronize()
+    seg_step_ms = (time.perf_counter() - t0) * 1e3 / n
+    per_inst = []
+    for f in frames[warm + n:warm + 2 * n]:
+        times, istate = instance_stages(icfg, istate, f, head)
+        per_inst.append(times)
+    inst_ms = {k: sorted(s[k] for s in per_inst)[n // 2] for k in per_inst[0]}
+    istate, inst_dev = device_profile(
+        lambda st, f: slam.step_seg(icfg, st, f.depth, f.color,
+                                    gt_segmentation(f.instance, k))[0],
+        istate, frames[warm + 2 * n:])
+    head_ms = head_times(head, frames[warm].color, k)
+    print(f"untraced slam.step_seg (every frame segmented, GT masks): {seg_step_ms!r} "
+          f"ms/frame over {n} frames")
+    print(f"instance stages (median of {n} frames, each synchronized, ms): "
+          + ", ".join(f"{k} {v!r}" for k, v in inst_ms.items()))
+    print("head at 640x480 (ms per call, CUDA events over 20 calls): "
+          + ", ".join(f"{k} {v!r}" for k, v in head_ms.items()))
+    report_profile("slam.step_seg", inst_dev, n)
     print(card)
     print(json.dumps({
         "card": card, "frames": n, "step_ms": step_ms, "stage_ms": stage_ms,
-        "window_ms_per_frame": wall_ms / n, "device_busy_share": busy_ms / wall_ms,
-        "device_ops_per_frame": launches,
-        "kernels": {k: {"ms_per_frame": v[0], "per_frame": v[1]} for k, v in top},
+        "step_seg_ms": seg_step_ms, "instance_stage_ms": inst_ms, "head_ms": head_ms,
+        "step_profile": main_dev, "step_seg_profile": inst_dev,
     }))
 
 

@@ -99,7 +99,7 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 def test_unported_options_raise():
     cfg = to_port(jcfg.config2_tum_fr3_long_office())
-    for change in (dict(map_kind="dense"), dict(use_instances=True),
+    for change in (dict(map_kind="dense"), dict(map_kind="dense", use_instances=True),
                    dict(track_stamps=True), dict(consistency_check=True)):
         with pytest.raises(NotImplementedError):
             slam.init_state(dataclasses.replace(cfg, **change), device="cpu")

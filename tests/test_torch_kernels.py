@@ -13,18 +13,21 @@ import pytest
 import torch
 
 from instancefusion_tpu_torch.config import (
-    EngineConfig, IcpConfig, RaycastConfig, TsdfConfig,
+    EngineConfig, IcpConfig, InstanceConfig, RaycastConfig, TsdfConfig,
 )
 from instancefusion_tpu_torch.datasets import synthetic
 from instancefusion_tpu_torch.engine import slam
 from instancefusion_tpu_torch.geometry.camera import Intrinsics
 from instancefusion_tpu_torch.geometry.se3 import se3_exp, se3_inverse
-from instancefusion_tpu_torch.ops import blocks, icp, kernels, preprocess
+from instancefusion_tpu_torch.ops import blocks, icp, kernels, labels, preprocess
 from instancefusion_tpu_torch.ops.kernels import icp as kicp
+from instancefusion_tpu_torch.ops.kernels import labels as klab
+from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
 from instancefusion_tpu_torch.ops.kernels import raycast as kray
 from instancefusion_tpu_torch.ops.kernels import tsdf as ktsdf
 
-# The test-scale block-map configuration of tests/test_splat.py.
+# The test-scale block-map configuration of tests/test_splat.py, with
+# instances on (config3's structure).
 CFG = EngineConfig(
     intrinsics=Intrinsics(fx=129.3, fy=129.1, cx=79.5, cy=59.5, width=160, height=120),
     tsdf=TsdfConfig(voxel_size=0.04, trunc=0.12, grid_size=96,
@@ -34,6 +37,8 @@ CFG = EngineConfig(
     raycast=RaycastConfig(near=0.2, far=4.0, use_depth_prior=True,
                           screen_space_normals=True, use_splat=True, splat_rmax=3),
     map_kind="blocks",
+    use_instances=True,
+    instances=InstanceConfig(max_instances=16, num_classes=8, min_mask_pixels=50),
 )
 K = 512
 pytestmark = pytest.mark.cuda
@@ -41,15 +46,20 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture(scope="module")
 def run():
-    """Four frames of the engine on the card, and the next frame's inputs."""
+    """Four frames of the engine on the card (ground-truth segmentations on
+    frames 1 and 3), and the next frame's inputs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels run only on the GPU")
     poses = synthetic.orbit_trajectory(12)
     frames = [synthetic.render_frame(poses[i], CFG.intrinsics) for i in range(6)]
     kernels.reset_launches()
     state = slam.init_state(CFG, poses[0])
-    for f in frames[:4]:
-        state, info = slam.step(CFG, state, f.depth, f.color)
+    for i, f in enumerate(frames[:4]):
+        if i % 2:
+            seg = synthetic.gt_segmentation(f.instance, CFG.instances.max_instances)
+            state, info = slam.step_seg(CFG, state, f.depth, f.color, seg)
+        else:
+            state, info = slam.step(CFG, state, f.depth, f.color)
         assert bool(info.track_ok)
     launches = {k: fn.launches for k, fn in kernels.wrappers().items()}
     return state, frames[4], launches
@@ -58,7 +68,8 @@ def run():
 def test_main_path_launches_every_kernel(run):
     _, _, launches = run
     rounds = sum(icp.level_schedule(CFG.icp, lvl)[1] for lvl in range(CFG.icp.levels))
-    assert launches == {"K2": 4 * rounds, "K3": 4 * rounds, "K4": 4, "K5": 4}
+    assert launches == {"K1": 4, "K2": 4 * rounds, "K3": 4 * rounds, "K4": 4,
+                        "K5": 4, "K7": 2}
 
 
 def _level0(state, frame):
@@ -143,16 +154,65 @@ def test_splat_kernel_matches_plain(run):
     assert (ik.color - ir.color)[both].abs().max().item() < 1e-3
 
 
-def test_step_makes_no_host_sync(run):
+def test_preprocess_kernel_matches_plain(run):
+    """df and vmap within 1e-5, valid equal, nmap within 1e-3 on valid
+    pixels (tests/test_pallas.py's bounds), on noisy depth with dropouts."""
+    _, frame, _ = run
+    g = torch.Generator(device="cuda").manual_seed(0)
+    depth = frame.depth + 0.004 * torch.randn(frame.depth.shape, generator=g,
+                                              device="cuda") * (frame.depth > 0)
+    depth = torch.where(torch.rand(depth.shape, generator=g, device="cuda") < 0.02,
+                        torch.zeros_like(depth), depth)
+    before = kpre.fused_preprocess.launches
+    out = kpre.fused_preprocess(depth, CFG.intrinsics, CFG.preprocess)
+    ref = kpre.fused_preprocess_ref(depth, CFG.intrinsics, CFG.preprocess)
+    assert kpre.fused_preprocess.launches == before + 1
+    torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=1e-5)
+    assert torch.equal(out[3], ref[3]) and int(ref[3].sum()) > 5000
+    v = ref[3]
+    assert (out[2] - ref[2])[v].abs().max().item() < 1e-3
+
+
+def test_label_vote_kernel_matches_plain(run):
+    """Labels and counts equal on >= 99.9% of the voxels of valid slots; the
+    rest project onto a .5 pixel boundary that the two round apart."""
+    state, frame, _ = run
+    seg = synthetic.gt_segmentation(frame.instance, CFG.instances.max_instances)
+    touched = blocks.touched_blocks_mask(frame.depth, frame.T_wc, CFG.intrinsics, CFG.tsdf)
+    nb3 = blocks.num_blocks_per_axis(CFG.tsdf) ** 3
+    slots, valid = blocks.compact_touched_slots(state.volume, touched, CFG.tsdf,
+                                                min(8192, nb3))
+    gid = seg.mask_id
+    planes_k = [state.votes.label.clone(), state.votes.count.clone()]
+    planes_r = [x.clone() for x in planes_k]
+    args = (slots, valid, frame.depth, gid, frame.T_wc, CFG.intrinsics, CFG.tsdf)
+    klab.label_vote(state.volume.block_coords, *planes_k, *args)
+    klab.label_vote_ref(state.volume.block_coords, *planes_r, *args)
+    rows = slots[valid].long()
+    assert rows.numel() > 20
+    assert not torch.equal(planes_k[1], state.votes.count)  # the frame voted
+    for a, b in zip(planes_k, planes_r):
+        assert float((a[rows] == b[rows]).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("with_seg", [False, True])
+def test_step_makes_no_host_sync(run, with_seg):
     """The per-frame path never waits for the device: no .item(),
-    boolean-mask indexing, nonzero or host copy inside slam.step."""
+    boolean-mask indexing, nonzero or host copy inside slam.step or
+    slam.step_seg."""
     state, frame, _ = run
     vol = state.volume
     state = state._replace(volume=vol._replace(
-        sdf=vol.sdf.clone(), weight=vol.weight.clone(), color=vol.color.clone()))
+        sdf=vol.sdf.clone(), weight=vol.weight.clone(), color=vol.color.clone()),
+        votes=labels.LabelVotes(*(x.clone() for x in state.votes)))
+    seg = synthetic.gt_segmentation(frame.instance, CFG.instances.max_instances)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, info = slam.step(CFG, state, frame.depth, frame.color)
+        if with_seg:
+            state, info = slam.step_seg(CFG, state, frame.depth, frame.color, seg)
+        else:
+            state, info = slam.step(CFG, state, frame.depth, frame.color)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(info.track_ok)

@@ -12,6 +12,7 @@ from instancefusion_tpu.config import PreprocessConfig
 from instancefusion_tpu.datasets import synthetic as jsyn
 from instancefusion_tpu.ops import common as jcommon
 from instancefusion_tpu.ops import preprocess as jpp
+from instancefusion_tpu.ops.pallas import preprocess as jpp_pl
 from instancefusion_tpu_torch.ops import common as pcommon
 from instancefusion_tpu_torch.ops import preprocess as ppp
 from tests.helpers import SMALL_INTR
@@ -60,8 +61,18 @@ def test_decimate_matches_reference(s):
                                   np.asarray(jcommon.decimate(jnp.asarray(x), s)))
 
 
-def test_fused_preprocess_flag_raises():
-    cfg = dataclasses.replace(to_port(PreprocessConfig()), use_pallas=True)
-    with pytest.raises(NotImplementedError):
-        ppp.build_frame_pyramid(t(np.ones((8, 8), np.float32)),
-                                to_port(SMALL_INTR), cfg, 1)
+def test_fused_preprocess_flag_matches_pallas_interpret(noisy_depth):
+    """With use_pallas set (bench.py's setting) level 0 comes from K1's
+    wrapper, here its plain version, held to the reference's fused Pallas
+    kernel in interpret mode at tests/test_pallas.py's tolerances."""
+    depth, _ = noisy_depth
+    cfg = dataclasses.replace(PreprocessConfig(), use_pallas=True)
+    df, vmap, nmap, valid = jpp_pl.fused_preprocess(jnp.asarray(depth), SMALL_INTR, cfg,
+                                                    interpret=True)
+    out = ppp.build_frame_pyramid(t(depth), to_port(SMALL_INTR), to_port(cfg), 1)[0]
+    np.testing.assert_allclose(n(out["depth"]), np.asarray(df), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(n(out["vmap"]), np.asarray(vmap), rtol=TOL, atol=TOL)
+    np.testing.assert_array_equal(n(out["valid"]), np.asarray(valid))
+    v = np.asarray(valid)
+    assert v.sum() > 5000
+    np.testing.assert_allclose(n(out["nmap"])[v], np.asarray(nmap)[v], atol=1e-3)

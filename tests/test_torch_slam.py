@@ -1,5 +1,6 @@
-"""The slice as a whole: the port's `slam.step` against the reference's on
-the CPU, a state carried across mid-sequence, and the port's own accuracy."""
+"""The slice as a whole: the port's `slam.step` and `slam.step_seg` against
+the reference's on the CPU, a state carried across mid-sequence, and the
+port's own accuracy."""
 
 import dataclasses
 
@@ -8,14 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from instancefusion_tpu.config import InstanceConfig
 from instancefusion_tpu.datasets import synthetic as jsyn
 from instancefusion_tpu.engine import slam as jslam
+from instancefusion_tpu.models.segmentation import Segmentation as JSeg
 from instancefusion_tpu_torch import convert
 from instancefusion_tpu_torch.datasets import synthetic as psyn
 from instancefusion_tpu_torch.engine import slam as pslam
+from instancefusion_tpu_torch.models.segmentation import Segmentation as PSeg
 from instancefusion_tpu_torch.utils.ate import ate_rmse
 from tests.helpers import SMALL_INTR
-from tests.torch_helpers import blocks_cfg, n, to_port
+from tests.torch_helpers import blocks_cfg, gt_segmentation, n, t, to_port
 
 # Color every 2nd frame: the 4-frame comparison covers both cadence branches.
 JCFG = dataclasses.replace(blocks_cfg(), color_every=2)
@@ -29,9 +33,10 @@ def _arrays(state) -> dict:
     state = jax.device_get(state)
     out = {k: np.asarray(getattr(state, k))
            for k in ("T_wc", "pred_T_wc", "frame_idx", "lost_frames", "T_prev_wc")}
-    for prefix in ("volume", "pred"):
-        for name, v in getattr(state, prefix)._asdict().items():
-            out[f"{prefix}.{name}"] = np.asarray(v)
+    for prefix in ("volume", "pred", "votes", "table"):
+        if getattr(state, prefix) is not None:
+            for name, v in getattr(state, prefix)._asdict().items():
+                out[f"{prefix}.{name}"] = np.asarray(v)
     return out
 
 
@@ -144,3 +149,66 @@ def test_step_gt_color_cadence_unbiased(reference):
     c1, c4 = bm1.color[lit], bm4.color[lit]
     assert float((c4 - c1).abs().median()) < 0.03
     assert 0.9 < float(c4.mean() / c1.mean()) < 1.1
+
+
+# config3's structure at test scale: GT masks on every frame.
+JCFG_SEG = dataclasses.replace(
+    blocks_cfg(), use_instances=True,
+    instances=InstanceConfig(max_instances=16, num_classes=8, min_mask_pixels=50))
+PCFG_SEG = to_port(JCFG_SEG)
+N_SEG = 5
+
+
+@pytest.fixture(scope="module")
+def reference_seg():
+    """5 reference `step_seg` frames on GT masks: poses and final state."""
+    poses = jsyn.orbit_trajectory(12)
+    frames = [jsyn.render_frame(poses[i], SMALL_INTR) for i in range(N_SEG)]
+    state = jslam.init_state(JCFG_SEG, poses[0])
+    est = []
+    segs = [gt_segmentation(np.asarray(f.instance), JCFG_SEG.instances.max_instances)
+            for f in frames]
+    for f, seg in zip(frames, segs):
+        state, _ = jslam.step_seg(JCFG_SEG, state, f.depth, f.color,
+                                  JSeg(*(jax.numpy.asarray(x) for x in seg)))
+        est.append(np.asarray(state.T_wc))
+    return dict(poses=np.array(poses), segs=segs, est=est, state=_arrays(state),
+                frames=[(np.array(f.depth), np.array(f.color)) for f in frames])
+
+
+def test_step_seg_matches_reference(reference_seg):
+    """Poses within the `step` tolerance, the instance table equal, votes
+    equal on >= 99.9% of the voxels that either side voted."""
+    ref = reference_seg
+    state = pslam.init_state(PCFG_SEG, ref["poses"][0], device="cpu")
+    for i, ((d, c), seg) in enumerate(zip(ref["frames"], ref["segs"])):
+        state, info = pslam.step_seg(PCFG_SEG, state, d, c, PSeg(*(t(x) for x in seg)))
+        assert bool(info.track_ok)
+        dt, dr = _pose_error(n(state.T_wc), ref["est"][i])
+        assert dt < POSE_TOL and dr < POSE_TOL, (i, dt, dr)
+    out = convert.state_to_numpy(state)
+    for name in ("active", "cls", "score", "age", "matches", "overflow"):
+        np.testing.assert_array_equal(out[f"table.{name}"], ref["state"][f"table.{name}"],
+                                      err_msg=name)
+    assert out["table.active"].sum() >= 3 and out["table.matches"].sum() > 0
+    # Votes start at label -1, count 0: a voxel either side changed was voted.
+    voted = np.zeros_like(out["votes.count"], bool)
+    for votes in (out, ref["state"]):
+        voted |= (votes["votes.label"] != -1) | (votes["votes.count"] != 0)
+    assert voted.sum() > 5000
+    for name in ("label", "count"):
+        share = (out[f"votes.{name}"] == ref["state"][f"votes.{name}"])[voted].mean()
+        assert share >= 0.999, (name, share)
+
+
+def test_state_round_trip_with_instances(reference_seg):
+    """votes.* and table.* come across and back unchanged."""
+    arrays = reference_seg["state"]
+    state = convert.state_from_numpy(arrays, PCFG_SEG, device="cpu")
+    assert state.votes is not None and state.table is not None
+    back = convert.state_to_numpy(state)
+    assert back.keys() == arrays.keys()
+    assert any(k.startswith("votes.") for k in back) and "table.overflow" in back
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k], v, err_msg=k)
+        assert back[k].dtype == v.dtype, k

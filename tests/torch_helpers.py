@@ -11,7 +11,9 @@ themselves are held against those plain versions by
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -37,6 +39,17 @@ def blocks_cfg():
             screen_space_normals=True, use_splat=True, splat_rmax=RMAX,
         ),
     )
+
+
+def gt_segmentation(instance: np.ndarray, k: int):
+    """Ground-truth masks as the numpy fields of a ``Segmentation``, made by
+    the reference's own construction (tests/test_instances.py): class =
+    id + 1, ids 0..3.  The port's ``synthetic.gt_segmentation`` is held to
+    it by tests/test_torch_instances.py."""
+    from tests.test_instances import gt_segmentation as reference_gt
+
+    seg = reference_gt(SimpleNamespace(instance=jnp.asarray(instance)), k)
+    return tuple(np.asarray(x) for x in seg)
 
 
 def to_port(obj):
