@@ -22,10 +22,24 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    masks: tracking, ATE and launch counts as above, K7 once per segmented
    frame, a populated instance table, and the fused labels read back at
    the final prediction must cover and agree with the ground truth;
-5. each kernel against its plain PyTorch version, on inputs taken from the
+5. the photometric path: the bench configuration with ``rgb_weight`` 0.1,
+   the drift sentinel (``consistency_check``) and the observation stamps
+   (``track_stamps``) over the same 33 poses rendered with texture:
+   tracking, ATE and launch counts as above (K2 and K3 12 a frame, 9 of
+   them with the photometric planes; K5 with color), no sentinel alarm, a
+   non-zero photometric weight, and stamps that end at the last frame with
+   no revisit evidence;
+6. the local loop: that path's final state aged (every fused slot seen 200
+   frames ago, frame 300) and its pose drifted by a fixed twist; the last
+   frame's ``localloop.attempt`` must pull the pose back to the tracked one,
+   and ``reset_gaps`` must consume the evidence;
+7. each kernel against its plain PyTorch version, on inputs taken from the
    port's own state at those configurations, with times of the kernel, the
-   plain version and, where one PyTorch call does the same work, that call;
-6. the packaged segmentation head at 640x480 on the card, held against the
+   plain version and, where one PyTorch call does the same work, that call
+   (K2 and K3 with the photometric planes, K5 with color and K6 among
+   them; no kernel may launch while a plain version is timed), and the
+   bound of K8, which is not ported;
+8. the packaged segmentation head at 640x480 on the card, held against the
    same head on the CPU: outputs, the grouping of the same outputs, and the
    whole segmentation on frames whose grouping does not hinge on tied
    heatmap peaks; then one ``step_seg`` on a head segmentation.
@@ -55,11 +69,27 @@ GN_FLOPS_PER_PIXEL = 116
 # two products, exponent, weighted sums) and ~60 for the vertex, the
 # central differences, the cross product and its normalization.
 PREPROCESS_FLOPS_PER_PIXEL = 260
+# Per-pixel fp32 operations of the photometric half of a GN step: the
+# prediction-camera transform 18, projection gradient 8, rotation back 15,
+# residual 1, cross product 9, 27 sums x 3.
+RGB_FLOPS_PER_PIXEL = 132
+# Per-pixel fp32 operations of K6 on a masked pixel: residual 8, Huber
+# weight 4, Jacobian 9, 27 sums x 3, the mask and |r| w sums 3.
+NE_FLOPS_PER_PIXEL = 105
 # Per-voxel fp32 operations of K7: center 6, transform 18, projection 8,
 # rounding and gates ~8.
 VOTE_FLOPS_PER_VOXEL = 40
+# Per-voxel fp32 operations of K8's running average: weights 4, sdf blend 5,
+# clamp 1, color denominator 3, three color blends of 4.
+TSDF_UPDATE_FLOPS_PER_VOXEL = 25
 WARMUP, TIMED, CHUNK = 3, 30, 6
 PER_FRAME = {"K1": 1, "K2": 9, "K3": 9, "K4": 1, "K5": 1}
+# The photometric path: 9 association rounds with the rgb planes and 3
+# geometric ones of the sentinel a frame; the splat predicts color.
+RGB_PER_FRAME = {"K1": 1, "K2": 12, "K3": 12, "K4": 1, "K5": 1,
+                 "K2rgb": 9, "K3rgb": 9, "K5color": 1}
+# The drift injected before the local loop, on the left of the tracked pose.
+DRIFT_XI = (0.02, -0.015, 0.01, 0.008, -0.006, 0.01)
 HEAD_FRAMES = 3
 # A frame's head segmentation is held end to end against the CPU's where it
 # survives HEAD_TRIALS perturbations of the outputs by up to HEAD_EPS, above
@@ -74,16 +104,29 @@ REPLACES = {
     "K5": "instancefusion_tpu/ops/pallas/raycast.py:319 splat_depth_groups "
           "(and :581 splat_depth)",
     "K7": "instancefusion_tpu/ops/pallas/tsdf.py:478 fused_label_vote",
+    "K2rgb": "instancefusion_tpu/ops/pallas/icp.py:218 gather_target_maps "
+             "(tgt_rgb planes, :137-151, :187-196)",
+    "K3rgb": "instancefusion_tpu/ops/pallas/icp.py:565 gn_iterations "
+             "(rgb sums and trust-fraction combine, :388-434, :449-466)",
+    "K6": "instancefusion_tpu/ops/pallas/icp.py:652 reduce_normal_equations",
+    "K5color": "instancefusion_tpu/ops/pallas/raycast.py:319 splat_depth_groups "
+               "(and :581 splat_depth), with_color",
 }
 SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
            "K2": "instancefusion_tpu_torch/csrc/icp.cu",
            "K3": "instancefusion_tpu_torch/csrc/icp.cu",
            "K4": "instancefusion_tpu_torch/csrc/tsdf.cu",
            "K5": "instancefusion_tpu_torch/csrc/raycast.cu",
-           "K7": "instancefusion_tpu_torch/csrc/labels.cu"}
+           "K7": "instancefusion_tpu_torch/csrc/labels.cu",
+           "K2rgb": "instancefusion_tpu_torch/csrc/icp.cu",
+           "K3rgb": "instancefusion_tpu_torch/csrc/icp.cu",
+           "K6": "instancefusion_tpu_torch/csrc/icp.cu",
+           "K5color": "instancefusion_tpu_torch/csrc/raycast.cu"}
 NAMES = {"K1": "fused_preprocess", "K2": "gather_target_maps",
          "K3": "gn_iterations", "K4": "integrate", "K5": "splat_planes",
-         "K7": "label_vote"}
+         "K7": "label_vote", "K2rgb": "gather_target_maps[rgb]",
+         "K3rgb": "gn_iterations[rgb]", "K6": "normal_equations",
+         "K5color": "splat_planes[color]"}
 
 
 def fail(msg: str) -> None:
@@ -151,6 +194,15 @@ def instance_config(num_classes: int):
                                instances=InstanceConfig(num_classes=num_classes))
 
 
+def rgb_config():
+    """The bench configuration with the photometric term at weight 0.1 (the
+    weight the TPU's photometric bench ran), the drift sentinel and the
+    observation stamps."""
+    cfg = bench_config()
+    return dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, rgb_weight=0.1),
+                               consistency_check=True, track_stamps=True)
+
+
 def step(cfg, state, frame, seg=None):
     """One ``slam.step`` (``slam.step_seg`` with a segmentation), failing if
     anything in it waits for the device."""
@@ -165,47 +217,68 @@ def step(cfg, state, frame, seg=None):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def run_path(cfg, frames, poses, card, name, seg_every=0):
+def launch_counts() -> dict:
+    """Each kernel's launch count, and those of the photometric variants of
+    K2 and K3 and the color variant of K5."""
+    from instancefusion_tpu_torch.ops import kernels
+
+    fns = kernels.wrappers()
+    out = {k: fn.launches for k, fn in fns.items()}
+    out.update(K2rgb=fns["K2"].launches_rgb, K3rgb=fns["K3"].launches_rgb,
+               K5color=fns["K5"].launches_color)
+    return out
+
+
+def run_path(cfg, frames, poses, card, name, seg_every=0, per_frame=PER_FRAME):
     """Drive one path over `frames` with every check; every `seg_every`-th
     frame (from frame 0) goes through ``slam.step_seg`` with its ground-truth
-    masks when `seg_every` is set.  Returns the final state and the kernel
-    launch counts of the run."""
+    masks when `seg_every` is set.  Each kernel (and variant) must launch
+    `per_frame` times a frame (K7 once a segmented frame, K6 and unlisted
+    variants never).  Returns the final state, the launch counts of the run,
+    the per-frame ``StepInfo``s and, with the photometric term, each frame's
+    trust-fraction weight of its last photometric K3 launch."""
     from instancefusion_tpu_torch.datasets import synthetic
     from instancefusion_tpu_torch.engine import slam
     from instancefusion_tpu_torch.ops import kernels
+    from instancefusion_tpu_torch.ops.kernels import icp as kicp
     from instancefusion_tpu_torch.utils.ate import ate_rmse
 
     n = WARMUP + TIMED
     segs = [synthetic.gt_segmentation(f.instance, cfg.instances.max_instances)
             if seg_every and i % seg_every == 0 else None for i, f in enumerate(frames)]
     n_seg = sum(seg is not None for seg in segs)
+    rgb = cfg.icp.rgb_weight > 0.0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     state = slam.init_state(cfg, poses[0])
-    track_ok, est = [], []
+    infos, est, wr = [], [], []
+
+    def run(i0, i1):
+        nonlocal state
+        for f, seg in zip(frames[i0:i1], segs[i0:i1]):
+            state, info = step(cfg, state, f, seg)
+            infos.append(info)
+            est.append(state.T_wc)
+            if rgb:
+                wr.append(kicp.gn_iterations.last_wr)
+
     t0 = time.perf_counter()
-    for f, seg in zip(frames[:WARMUP], segs):
-        state, info = step(cfg, state, f, seg)
-        track_ok.append(info.track_ok[None])
-        est.append(state.T_wc)
+    run(0, WARMUP)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     chunk_ms = []
     t_all = time.perf_counter()
     for i in range(WARMUP, n, CHUNK):
         t0 = time.perf_counter()
-        for f, seg in zip(frames[i:i + CHUNK], segs[i:i + CHUNK]):
-            state, info = step(cfg, state, f, seg)
-            track_ok.append(info.track_ok[None])
-            est.append(state.T_wc)
+        run(i, i + CHUNK)
         torch.cuda.synchronize()
         chunk_ms.append((time.perf_counter() - t0) * 1e3 / len(frames[i:i + CHUNK]))
     timed_s = time.perf_counter() - t_all
-    launches = {k: fn.launches for k, fn in kernels.wrappers().items()}
+    launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
-    ok = torch.cat(track_ok).cpu().numpy()
+    ok = torch.stack([info.track_ok for info in infos]).cpu().numpy()
     ate = ate_rmse(torch.stack(est).cpu().numpy(), poses[:n].cpu().numpy())
     fps = TIMED / timed_s
     print(f"{name}: {n} frames ({n_seg} segmented; {WARMUP} warm-up in {warm_s!r} s), "
@@ -214,10 +287,77 @@ def run_path(cfg, frames, poses, card, name, seg_every=0):
           f"launches {launches} [{card}]", flush=True)
     check(ok.all(), f"{name}: tracking failed on frames {np.flatnonzero(~ok).tolist()}")
     check(ate < cfg.tsdf.voxel_size, f"{name}: ATE {ate} >= voxel {cfg.tsdf.voxel_size}")
-    for k, expect in {**{k: per * n for k, per in PER_FRAME.items()}, "K7": n_seg}.items():
-        check(launches[k] == expect,
-              f"{name}: {k} launched {launches[k]} times, expected {expect}")
-    return state, launches
+    expect = {k: 0 for k in launches}
+    expect.update({k: per * n for k, per in per_frame.items()}, K7=n_seg)
+    for k, count in expect.items():
+        check(launches[k] == count,
+              f"{name}: {k} launched {launches[k]} times, expected {count}")
+    return state, launches, infos, wr
+
+
+def photometric_checks(cfg, state, infos, wr):
+    """No sentinel alarm on any frame of the clean run, a non-zero median
+    photometric weight, and stamps that end at the last frame with no
+    revisit evidence in view."""
+    from instancefusion_tpu_torch.engine import localloop
+
+    alarms = torch.stack([info.drift_alarm for info in infos]).cpu().numpy()
+    ewma = torch.stack([info.drift_ewma for info in infos]).cpu().numpy()
+    wr = torch.stack(wr).cpu().numpy()
+    last_max, frame_idx = int(state.stamp[:, 0].max()), int(state.frame_idx)
+    evidence = int(localloop.evidence_count(cfg, state))
+    print(f"photometric path: sentinel EWMA max {float(ewma.max())!r} m (threshold "
+          f"{cfg.consistency_thresh}), alarms on {int(alarms.sum())} frames; trust-"
+          f"fraction weight wr median {float(np.median(wr))!r} (min {float(wr.min())!r}, "
+          f"max {float(wr.max())!r}); stamps: largest last {last_max}, frame_idx "
+          f"{frame_idx}, {int((state.stamp[:, 0] > 0).sum())} stamped slots, "
+          f"evidence_count {evidence}", flush=True)
+    check(not alarms.any(), f"sentinel alarm on frames {np.flatnonzero(alarms).tolist()}")
+    check(float(np.median(wr)) > 0.0, "the photometric term had weight 0")
+    check(last_max == frame_idx, f"largest stamp {last_max} != frame_idx {frame_idx}")
+    check(evidence == 0, f"revisit evidence {evidence} on a clean run")
+
+
+def local_loop_phase(cfg, state, frame, card):
+    """Age the state (every fused slot last seen 200 frames ago, frame 300),
+    drift its pose by DRIFT_XI on the left of the tracked pose of `frame`,
+    and register `frame` (K1 on its depth, level 0) against the inactive
+    view: ``attempt`` must succeed, recover the translation to within 0.25x
+    the drift and the rotation to 0.01 rad of the tracked pose, and
+    ``reset_gaps`` must leave no evidence."""
+    from instancefusion_tpu_torch.engine import localloop
+    from instancefusion_tpu_torch.geometry.se3 import se3_exp
+    from instancefusion_tpu_torch.ops import preprocess
+
+    T_track = state.T_wc.clone()
+    xi = torch.tensor(DRIFT_XI, dtype=torch.float32, device=T_track.device)
+    T_drift = se3_exp(xi) @ T_track
+    gap = torch.where(state.stamp[:, 0] > 0, 200, 0).to(torch.int32)
+    aged = state._replace(stamp=torch.stack([state.stamp[:, 0], gap], -1),
+                          frame_idx=torch.full_like(state.frame_idx, 300), T_wc=T_drift)
+    lvl = preprocess.build_frame_pyramid(frame.depth, cfg.intrinsics, cfg.preprocess, 1)[0]
+    before = int(localloop.evidence_count(cfg, aged))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = localloop.attempt(cfg, aged, lvl["vmap"], lvl["nmap"], lvl["valid"])
+    ok = bool(res.ok)
+    ms = (time.perf_counter() - t0) * 1e3
+    T = res.T_corr_wc.double()
+    err_t = float(torch.linalg.norm(T[:3, 3] - T_track[:3, 3].double()))
+    drift_t = float(torch.linalg.norm(T_drift[:3, 3] - T_track[:3, 3]))
+    chord = float(torch.linalg.norm(T[:3, :3] - T_track[:3, :3].double())) / (2 * 2 ** 0.5)
+    err_r = 2.0 * float(np.arcsin(min(chord, 1.0)))
+    after = int(localloop.evidence_count(
+        cfg, aged._replace(stamp=localloop.reset_gaps(aged.stamp, cfg.posegraph.local_window))))
+    print(f"local loop: ok {ok}, inactive view {float(res.pred_pixels)!r} px, inliers "
+          f"{float(res.inliers)!r}; injected drift {drift_t * 1e3!r} mm, after the loop "
+          f"{err_t * 1e3!r} mm and {err_r!r} rad from the tracked pose; evidence "
+          f"{before} before reset_gaps, {after} after; attempt {ms!r} ms [{card}]",
+          flush=True)
+    check(ok, "localloop.attempt failed")
+    check(err_t < 0.25 * drift_t, f"local loop left {err_t} m of a {drift_t} m drift")
+    check(err_r < 0.01, f"local loop left {err_r} rad")
+    check(before > 0 and after == 0, f"evidence {before} before, {after} after reset_gaps")
 
 
 def instance_checks(cfg, state, frame):
@@ -373,13 +513,69 @@ def record(k, launches, err, ms, plain_ms, n_bytes, n_flops, library_ms, note):
     return rec
 
 
+def plain_time_ms(fn, reps: int) -> float:
+    """`time_ms` of a plain version, failing if any kernel launched in it (K6
+    among them while the plain K3 runs)."""
+    before = launch_counts()
+    ms = time_ms(fn, reps)
+    check(launch_counts() == before, "a plain version launched a kernel")
+    return ms
+
+
+def splat_record(k, cfg, slots, valid, coords, maps, T, d0, with_color, launches):
+    """K5 against its plain version on the listed blocks of `maps` (sdf,
+    weight, color) at pose T, with or without color."""
+    from instancefusion_tpu_torch.ops.kernels import raycast as kray
+
+    intr, rmax = cfg.intrinsics, cfg.raycast.splat_rmax
+    hw, b3 = intr.height * intr.width, cfg.tsdf.block_size ** 3
+    sargs = (slots, valid, coords, *maps, T, intr, cfg.tsdf, with_color, rmax)
+    planes_k = kray.splat_planes(*sargs)
+    planes_r = kray.splat_planes_ref(*sargs)
+    img_k = kray.finish_splat_images(planes_k, intr, cfg.tsdf, with_color, d0)
+    img_r = kray.finish_splat_images(planes_r, intr, cfg.tsdf, with_color, d0)
+    xor = int((img_k.valid ^ img_r.valid).sum())
+    n_vr = int(img_r.valid.sum())
+    both = img_k.valid & img_r.valid
+    err = (img_k.depth - img_r.depth)[both].abs().max().item()
+    rel = ((planes_k - planes_r).abs().amax((1, 2))
+           / planes_r.abs().amax((1, 2)).clamp(min=1e-30)).tolist()
+    check(xor < 0.01 * max(n_vr, 1), f"{k} valid sets differ on {xor} of {n_vr}")
+    check(err < 1e-3, f"{k} depth differs by {err} (>= 1e-3)")
+    note = ""
+    if with_color:
+        col_err = (img_k.color - img_r.color)[both].abs().max().item()
+        check(col_err < 5e-3, f"{k} color differs by {col_err} (>= 5e-3)")
+        note = f"color max err {col_err!r} where both valid (tolerance 5e-3); "
+    taps = list(kray.splat_taps_ref(*sargs))
+    flat_all = torch.cat([t[0] for t in taps])
+    contrib_all = torch.cat([t[1] for t in taps], 1)
+    n_taps = int(flat_all.shape[0])
+    nch = planes_k.shape[0]
+    acc = torch.zeros((nch, hw), device=planes_k.device)
+    del taps
+    n_valid = int(valid.sum())
+    return record(
+        k, launches, err,
+        time_ms(lambda: kray.splat_planes(*sargs), 50),
+        plain_time_ms(lambda: kray.splat_planes_ref(*sargs), 5),
+        slots.shape[0] * 5 + n_valid * 12 + n_valid * b3 * 4 * (2 + (3 if with_color else 0))
+        + nch * hw * 4,
+        n_taps * (2.0 * nch + 8.0),
+        time_ms(lambda: acc.index_add_(1, flat_all, contrib_all), 20),
+        f"K={slots.shape[0]} listed, {n_valid} valid slots, rmax={rmax}, {n_taps} tent "
+        f"taps, {nch} planes; valid XOR {xor} of {n_vr}, plane max rel err {rel}; {note}"
+        f"tolerance: valid XOR < 1%, depth < 1e-3 m where both valid; library = one "
+        f"index_add_ of the precomputed taps",
+    )
+
+
 def kernel_phase(cfg, state, frame, launches):
     """Each kernel against its plain version on inputs from the port's state
     after the main path and one more frame; returns the kernel records."""
     from instancefusion_tpu_torch.geometry.se3 import se3_inverse
     from instancefusion_tpu_torch.ops import blocks, icp, preprocess
     from instancefusion_tpu_torch.ops.kernels import icp as kicp
-    from instancefusion_tpu_torch.ops.kernels import raycast as kray
     from instancefusion_tpu_torch.ops.kernels import tsdf as ktsdf
 
     intr = cfg.intrinsics
@@ -433,7 +629,7 @@ def kernel_phase(cfg, state, frame, launches):
     recs.append(record(
         "K3", launches, err,
         time_ms(lambda: kicp.gn_iterations(*args, **kw), 200),
-        time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
+        plain_time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
         n * (4 * 12 + 4) + 64 + 72, GN_FLOPS_PER_PIXEL * n_gate * inner_n, None,
         f"N={n}, {n_gate} gated, inner_n={inner_n}, inliers {nin_k} vs {nin_r}, "
         f"res {float(rs_k)!r} vs {float(rs_r)!r}; tolerance: pose 5e-5",
@@ -481,42 +677,148 @@ def kernel_phase(cfg, state, frame, launches):
     ))
 
     # K5 on the integrated map, as the main path runs it (no color).
-    rmax = cfg.raycast.splat_rmax
-    pred_color = cfg.use_color and cfg.raycast.predict_color
-    sargs = (slots, valid, vol.block_coords, *maps_k, T, intr, cfg.tsdf, pred_color, rmax)
-    planes_k = kray.splat_planes(*sargs)
-    planes_r = kray.splat_planes_ref(*sargs)
-    img_k = kray.finish_splat_images(planes_k, intr, cfg.tsdf, pred_color, d0)
-    img_r = kray.finish_splat_images(planes_r, intr, cfg.tsdf, pred_color, d0)
-    xor = int((img_k.valid ^ img_r.valid).sum())
-    n_vr = int(img_r.valid.sum())
-    both = img_k.valid & img_r.valid
-    err = (img_k.depth - img_r.depth)[both].abs().max().item()
-    rel = ((planes_k - planes_r).abs().amax((1, 2))
-           / planes_r.abs().amax((1, 2)).clamp(min=1e-30)).tolist()
-    check(xor < 0.01 * max(n_vr, 1), f"K5 valid sets differ on {xor} of {n_vr}")
-    check(err < 1e-3, f"K5 depth differs by {err} (>= 1e-3)")
-    taps = list(kray.splat_taps_ref(*sargs))
-    flat_all = torch.cat([t[0] for t in taps])
-    contrib_all = torch.cat([t[1] for t in taps], 1)
-    n_taps = int(flat_all.shape[0])
-    nch = planes_k.shape[0]
-    acc = torch.zeros((nch, hw), device=planes_k.device)
-    del taps
-    recs.append(record(
-        "K5", launches, err,
-        time_ms(lambda: kray.splat_planes(*sargs), 50),
-        time_ms(lambda: kray.splat_planes_ref(*sargs), 5),
-        k * 5 + n_valid * 12 + n_valid * b3 * 4 * (2 + (6 if pred_color else 0))
-        + nch * hw * 4,
-        n_taps * (2.0 * nch + 8.0),
-        time_ms(lambda: acc.index_add_(1, flat_all, contrib_all), 20),
-        f"K={k} listed, {n_valid} valid slots, rmax={rmax}, {n_taps} tent taps, "
-        f"{nch} planes; valid XOR {xor} of {n_vr}, plane max rel err {rel}; "
-        f"tolerance: valid XOR < 1%, depth < 1e-3 m where both valid; library = "
-        f"one index_add_ of the precomputed taps",
-    ))
+    recs.append(splat_record("K5", cfg, slots, valid, vol.block_coords, maps_k, T, d0,
+                             cfg.use_color and cfg.raycast.predict_color, launches))
     return recs
+
+
+def rgb_kernel_phase(cfg, state, frame, last, launches):
+    """K2 and K3 with the photometric planes and K6 at level 0 of `frame`
+    against the photometric path's final state and prediction, and K5 with
+    color on that state's in-view blocks at its pose with `last` (the
+    path's last frame) as the depth prior; returns the kernel records."""
+    from instancefusion_tpu_torch.geometry.se3 import se3_inverse
+    from instancefusion_tpu_torch.ops import blocks, icp, preprocess
+    from instancefusion_tpu_torch.ops.kernels import icp as kicp
+
+    intr, icfg = cfg.intrinsics, cfg.icp
+    src = preprocess.build_frame_pyramid(frame.depth, intr, cfg.preprocess, 1,
+                                         preprocess.rgb_to_intensity(frame.color))[0]
+    pred = state.pred
+    T_cw = se3_inverse(state.pred_T_wc)
+    ti = preprocess.rgb_to_intensity(pred.color).contiguous()
+    planes = (ti, *icp.intensity_gradients(ti))
+    u, v, sel = icp.association_inputs(src["vmap"], src["valid"], state.T_wc, T_cw, intr)
+    targets = (pred.vertex_w.contiguous(), pred.normal_w.contiguous(), pred.valid.contiguous())
+    recs = []
+
+    # K2 with the photometric planes.
+    out_k = kicp.gather_target_maps(u, v, sel, *targets, planes)
+    out_r = kicp.gather_target_maps_ref(u, v, sel, *targets, planes)
+    err = max((a - b).abs().max().item() for a, b in
+              zip(out_k[:2] + out_k[3], out_r[:2] + out_r[3]))
+    mism = int((out_k[2] != out_r[2]).sum())
+    check(err == 0.0 and mism == 0, f"K2rgb differs from its plain version: {err}, {mism}")
+    n, hw = u.shape[0], intr.height * intr.width
+    flat = (torch.ceil(v - 0.5).clamp(0, intr.height - 1).long() * intr.width
+            + torch.ceil(u - 0.5).clamp(0, intr.width - 1).long())
+    table = torch.cat([targets[0].reshape(-1, 3), targets[1].reshape(-1, 3),
+                       targets[2].reshape(-1, 1).float()]
+                      + [p.reshape(-1, 1) for p in planes], 1)
+    recs.append(record(
+        "K2rgb", launches, err,
+        time_ms(lambda: kicp.gather_target_maps(u, v, sel, *targets, planes), 200),
+        plain_time_ms(lambda: kicp.gather_target_maps_ref(u, v, sel, *targets, planes), 50),
+        n * 9 + hw * 37 + n * 37, 0.0,
+        time_ms(lambda: table[flat], 200),
+        f"N={n} pixels, target {intr.height}x{intr.width}, 3 photometric planes; "
+        f"tolerance: exact (bit-identical gather); library = advanced indexing of a "
+        f"(HW, 10) target table by precomputed flat indices",
+    ))
+
+    # K3 with the photometric term, on those correspondences.
+    q_k, n_k, ok_k, (i_t, gx_t, gy_t) = out_k
+    inner_n, _ = icp.level_schedule(icfg, 0)
+    gate = (src["valid"].reshape(-1) & ok_k).float()
+    rgb_gate = ok_k.float()
+    src_v = src["vmap"].reshape(-1, 3).contiguous()
+    src_n = src["nmap"].reshape(-1, 3).contiguous()
+    kw = dict(inner_n=inner_n, dist_thresh=icfg.dist_thresh,
+              angle_thresh=icfg.angle_thresh, huber_delta=icfg.huber_delta,
+              damping=icfg.damping, min_valid=icfg.min_valid,
+              rgb=(src["intensity"].reshape(-1).contiguous(), i_t, gx_t, gy_t, rgb_gate),
+              T_pred_cw=T_cw, rgb_intr=(intr.fx, intr.fy), rgb_weight=icfg.rgb_weight)
+    args = (src_v, src_n, q_k, n_k, gate, state.T_wc)
+    T_k, nin_k, rs_k = kicp.gn_iterations(*args, **kw)
+    wr_k = float(kicp.gn_iterations.last_wr)
+    T_r, nin_r, rs_r = kicp.gn_iterations_ref(*args, **kw)
+    err = (T_k - T_r).abs().max().item()
+    nin_k, nin_r = float(nin_k), float(nin_r)
+    check(err < 5e-5, f"K3rgb pose differs from its plain version by {err} (> 5e-5)")
+    check(abs(nin_k - nin_r) <= 1e-3 * max(nin_r, 1.0),
+          f"K3rgb inliers {nin_k} vs plain {nin_r}")
+    check(wr_k > 0.0, f"K3rgb trust-fraction weight {wr_k}")
+    n_gate, n_rgb = float(gate.sum()), float(rgb_gate.sum())
+    recs.append(record(
+        "K3rgb", launches, err,
+        time_ms(lambda: kicp.gn_iterations(*args, **kw), 200),
+        plain_time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
+        n * 18 * 4 + 3 * 64 + 12,
+        (GN_FLOPS_PER_PIXEL * n_gate + RGB_FLOPS_PER_PIXEL * n_rgb) * inner_n, None,
+        f"N={n}, {n_gate} gated, {n_rgb} photometric, inner_n={inner_n}, inliers "
+        f"{nin_k} vs {nin_r}, res {float(rs_k)!r} vs {float(rs_r)!r}, wr {wr_k!r}; 18 "
+        f"floats a pixel read once; tolerance: pose 5e-5, inliers 1e-3 relative; "
+        f"library: none",
+    ))
+
+    # K6: the normal equations of one linearization at that pose.
+    R, t = state.T_wc[:3, :3], state.T_wc[:3, 3]
+    p_w = (src_v @ R.T + t).contiguous()
+    n_w = src_n @ R.T
+    dist = torch.linalg.norm(p_w - q_k, dim=-1)
+    mask = (gate.bool() & (dist < icfg.dist_thresh)
+            & (torch.sum(n_w * n_k, dim=-1) > icfg.angle_thresh)).float()
+    delta = icfg.huber_delta
+    ne_k = kicp.normal_equations(p_w, n_k, q_k, mask, delta)
+    ne_r = kicp.normal_equations_ref(p_w, n_k, q_k, mask, delta)
+    errs = [(a - b).abs().max().item() for a, b in zip(ne_k, ne_r)]
+    check(all(torch.allclose(a, b, rtol=2e-3, atol=2e-3) for a, b in zip(ne_k[:2], ne_r[:2])),
+          f"K6 H/b differ from the plain version by {errs[:2]} (rtol/atol 2e-3)")
+    check(float(ne_k[2]) == float(ne_r[2]), f"K6 inliers {float(ne_k[2])} vs {float(ne_r[2])}")
+    check(abs(float(ne_k[3]) - float(ne_r[3])) <= 1e-3 * abs(float(ne_r[3])),
+          f"K6 residual sum {float(ne_k[3])} vs {float(ne_r[3])}")
+    # The library yardstick: one product of [J sqrt(w), -r sqrt(w)] with itself
+    # gives the 21 + 6 sums of H and b (not the inlier and residual sums).
+    r = torch.sum(n_k * (p_w - q_k), dim=-1)
+    w = mask if delta <= 0 else mask * torch.clamp(delta / r.abs().clamp(min=1e-9), max=1.0)
+    sw = torch.sqrt(w)[:, None]
+    A = torch.cat([torch.cat([n_k, torch.linalg.cross(p_w, n_k)], 1) * sw,
+                   -r[:, None] * sw], 1).contiguous()
+    n_mask = float(mask.sum())
+    recs.append(record(
+        "K6", launches, max(errs),
+        time_ms(lambda: kicp.normal_equations(p_w, n_k, q_k, mask, delta), 200),
+        plain_time_ms(lambda: kicp.normal_equations_ref(p_w, n_k, q_k, mask, delta), 50),
+        n * 40 + 44 * 4, NE_FLOPS_PER_PIXEL * n_mask,
+        time_ms(lambda: torch.mm(A.T, A), 200),
+        f"N={n}, {n_mask} masked, huber {delta}; H/b/inliers/res max err {errs}; "
+        f"tolerance: H and b rtol/atol 2e-3 (another summation order), inliers exact, "
+        f"residual sum rtol 1e-3; library = one torch.mm of the precomputed (N, 7) "
+        f"[J sqrt(w), -r sqrt(w)] by itself (27 of the 29 sums); 0 launches a frame: "
+        f"no per-frame path runs it",
+    ))
+
+    # K5 with color on the state's in-view blocks, at its pose.
+    d0 = preprocess.build_frame_pyramid(last.depth, intr, cfg.preprocess, 1)[0]["depth"]
+    k = min(cfg.tsdf.touched_capacity, blocks.num_blocks_per_axis(cfg.tsdf) ** 3)
+    vol = state.volume
+    slots, valid = blocks.frustum_slots(vol, state.T_wc, intr, cfg.tsdf,
+                                        cfg.raycast.near, cfg.raycast.far, k)
+    recs.append(splat_record("K5color", cfg, slots, valid, vol.block_coords,
+                             (vol.sdf, vol.weight, vol.color), state.T_wc, d0, True,
+                             launches))
+    return recs
+
+
+def unported_bound(cfg) -> None:
+    """Print the bound of K8 (``fused_tsdf_update``, still to port; it
+    serves the dense map's touched-block integrate, on no path here) at the
+    bench shapes: the listed rows' sdf, weight and color read and written,
+    the same shapes of observations read."""
+    k, b3 = cfg.tsdf.touched_capacity, cfg.tsdf.block_size ** 3
+    b_ms, b_by = bound_ms(k * b3 * 5 * 4 * 3, TSDF_UPDATE_FLOPS_PER_VOXEL * k * b3)
+    print(f"K8 fused_tsdf_update: not ported, 0 launches a frame; bound_ms {b_ms!r} "
+          f"({b_by}) at K={k} rows x {b3} voxels", flush=True)
 
 
 def preprocess_record(cfg, frame, launches):
@@ -625,14 +927,24 @@ def main() -> None:
     frames = [synthetic.render_frame(poses[i], cfg.intrinsics) for i in range(n + 1)]
     torch.cuda.synchronize()
 
-    state, launches = run_path(cfg, frames[:n], poses[:n], card, "main path")
+    state, launches, _, _ = run_path(cfg, frames[:n], poses[:n], card, "main path")
     icfg = instance_config(PRETRAINED_SYNTHETIC["num_classes"])
-    istate, ilaunches = run_path(icfg, frames[:n], poses[:n], card, "instance path",
-                                 seg_every=2)
+    istate, ilaunches, _, _ = run_path(icfg, frames[:n], poses[:n], card,
+                                       "instance path", seg_every=2)
     instance_checks(icfg, istate, frames[n - 1])
+    rcfg = rgb_config()
+    tex = [synthetic.render_frame(poses[i], cfg.intrinsics, texture=True)
+           for i in range(n + 1)]
+    rstate, rlaunches, rinfos, wr = run_path(rcfg, tex[:n], poses[:n], card,
+                                             "photometric path", per_frame=RGB_PER_FRAME)
+    photometric_checks(rcfg, rstate, rinfos, wr)
     recs = [preprocess_record(cfg, frames[n], launches)]
     recs += kernel_phase(cfg, state, frames[n], launches)
     recs.append(label_vote_record(icfg, istate, frames[n], ilaunches))
+    recs += rgb_kernel_phase(rcfg, rstate, tex[n], tex[n - 1], rlaunches)
+    unported_bound(cfg)
+    # Last: the local loop drifts and ages a copy of the state's stamps and pose.
+    local_loop_phase(rcfg, rstate, tex[n - 1], card)
     head_phase(icfg, istate, frames[:n], frames[n], card)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)

@@ -26,7 +26,7 @@ class IcpConfig:
     dist_thresh: float = 0.10  # m, association gate
     angle_thresh: float = 0.34  # normal agreement gate (dot product)
     # Share of the joint system's information carried by the photometric
-    # term (0 disables it; the port raises on > 0 until it has that term).
+    # term (0 disables it).
     rgb_weight: float = 0.0
     damping: float = 1e-6  # diagonal damping of the 6x6 solve
     huber_delta: float = 0.0  # m; 0 = hard gating only

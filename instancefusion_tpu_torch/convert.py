@@ -1,7 +1,8 @@
 """Engine state and head weights to and from numpy arrays.
 
 State arrays are keyed by the state's field path, e.g. ``"T_wc"``,
-``"volume.sdf"``, ``"pred.depth"``, ``"votes.label"``, ``"table.cls"``, the
+``"volume.sdf"``, ``"pred.depth"``, ``"votes.label"``, ``"table.cls"``,
+``"stamp"``, ``"prev_coarse.0"`` (vmap; ``.1`` nmap, ``.2`` valid), the
 same names for this package's ``SlamState`` and the reference's, so a run
 of either engine can be carried into the other mid-sequence.  The
 segmentation head's weights come across from the reference's flax
@@ -26,17 +27,26 @@ from instancefusion_tpu_torch.ops.raycast import RaycastMaps
 _TOP = ("T_wc", "pred_T_wc", "frame_idx", "lost_frames", "T_prev_wc")
 _GROUPS = (("volume", BlockMap), ("pred", RaycastMaps), ("votes", LabelVotes),
            ("table", InstanceTable))
+# Fields that are None unless the configuration asks for them.
+_OPTIONAL = ("stamp", "drift_ewma")
 
 
 def state_to_numpy(state: SlamState) -> dict[str, np.ndarray]:
     """Every tensor of the state as a numpy array, keyed by field path;
-    ``votes.*`` and ``table.*`` only where the state carries instances."""
+    ``votes.*``, ``table.*``, ``stamp``, ``prev_coarse.*`` and
+    ``drift_ewma`` only where the state carries them."""
     out = {name: getattr(state, name).cpu().numpy() for name in _TOP}
     for prefix, _ in _GROUPS:
         group = getattr(state, prefix)
         if group is not None:
             for name, t in group._asdict().items():
                 out[f"{prefix}.{name}"] = t.cpu().numpy()
+    for name in _OPTIONAL:
+        if getattr(state, name) is not None:
+            out[name] = getattr(state, name).cpu().numpy()
+    if state.prev_coarse is not None:
+        for i, t in enumerate(state.prev_coarse):
+            out[f"prev_coarse.{i}"] = t.cpu().numpy()
     return out
 
 
@@ -55,7 +65,10 @@ def state_from_numpy(arrays: dict, cfg: EngineConfig, device=None) -> SlamState:
     if groups["volume"].directory.shape != (nb, nb, nb):
         raise ValueError(f"directory shape {tuple(groups['volume'].directory.shape)} "
                          f"does not match the configuration's {(nb, nb, nb)}")
-    return SlamState(**{name: get(name) for name in _TOP}, **groups,
+    optional = {name: get(name) for name in _OPTIONAL if name in arrays}
+    if "prev_coarse.0" in arrays:
+        optional["prev_coarse"] = tuple(get(f"prev_coarse.{i}") for i in range(3))
+    return SlamState(**{name: get(name) for name in _TOP}, **groups, **optional,
                      frame_count=int(arrays["frame_idx"]))
 
 

@@ -1,15 +1,20 @@
-// ICP kernels for Hopper (sm_90a): association gather (K2) and the
-// fixed-correspondence Gauss-Newton iterations (K3).
+// ICP kernels for Hopper (sm_90a): association gather (K2), the
+// fixed-correspondence Gauss-Newton iterations (K3) and the normal
+// equations of one linearization (K6).
 //
 // K2 replaces instancefusion_tpu/ops/pallas/icp.py:gather_target_maps
 // (_gather_kernel).  On the TPU the nearest-pixel lookup ran as factored
 // one-hot contractions on the MXU over tile-aligned windows, with the
-// target vertex rebuilt from a gathered depth to halve the matmul work.
+// target vertex rebuilt from a gathered depth to halve the matmul work, and
+// the photometric intensity split into bf16 hi/lo halves for the MXU.
 // A GPU gathers directly: one thread per source pixel reads the target
-// vertex, normal and validity at (ceil(v - 0.5), ceil(u - 0.5)).  There is
-// no window, so no pixel drops out.  Bound: bytes (each thread reads ~10
-// scattered floats and writes 7); neighbouring pixels project to
-// neighbouring target pixels, so the reads stay mostly coalesced.
+// vertex, normal and validity at (ceil(v - 0.5), ceil(u - 0.5)) and, with
+// the photometric planes, the intensity and its gradients at the same
+// index, in fp32.  There is no window, so no pixel drops out, and every
+// gathered value is bit-identical to the plain gather.  Bound: bytes (each
+// thread reads ~10 (13 with rgb) scattered floats and writes 7 (10));
+// neighbouring pixels project to neighbouring target pixels, so the reads
+// stay mostly coalesced.
 //
 // K3 replaces instancefusion_tpu/ops/pallas/icp.py:gn_iterations
 // (_gn_kernel).  The TPU kernel walked pixel tiles in order on one core and
@@ -17,15 +22,30 @@
 // so the work is split in two launches, repeated inner_n times:
 //   gn_reduce: a fixed grid of blocks, each accumulating the 29 normal-
 //     equation sums (21 upper-triangle J^T J, 6 J^T r, inlier count,
-//     sum |r|) of a grid-stride slice of pixels in fp32 registers, reduced
-//     by warp shuffles and written as one row of per-block partials;
-//   gn_solve: one block adds the partials in a fixed order, damps the
-//     diagonal by damping * max(H_ii, 1), solves by Cholesky, zeroes the
-//     increment unless inliers >= min_valid and it is finite, and updates
-//     the pose in device memory by exp(xi) (Rodrigues).
+//     sum |r|) of a grid-stride slice of pixels in fp32 registers and,
+//     with the photometric term, 27 more (21 Jr^T Jr, 6 Jr^T r) under the
+//     photometric gate alone: the geometric gate does not skip them.  Sums
+//     are reduced by warp shuffles and written as one row of per-block
+//     partials;
+//   gn_solve: one block adds the partials in a fixed order in fp64, joins
+//     the photometric system at the trust fraction wr = rgb_weight *
+//     tr(H_geo) / tr(H_rgb), damps the diagonal by damping * max(H_ii, 1),
+//     solves by Cholesky, zeroes the increment unless inliers >= min_valid
+//     and it is finite, and updates the pose in device memory by exp(xi)
+//     (Rodrigues).
 // No float atomics: the pose is the same from run to run, and it never
-// goes to the host.  Bound: bytes (13 floats a pixel per step, read once
-// per launch); the solve is a few hundred flops in one thread.
+// goes to the host.  Bound: bytes (13 floats a pixel per step, 18 with the
+// photometric planes, read once per launch); the solve is a few hundred
+// flops in one thread.
+//
+// K6 replaces instancefusion_tpu/ops/pallas/icp.py:reduce_normal_equations
+// (_kernel): the same 29 sums for given world points, target points and
+// normals and a float mask (w = mask x Huber weight), without the gate,
+// pose or solve.  ne_reduce runs K3's per-pixel accumulation
+// (accumulate_point_to_plane, shared) over the same fixed grid, and a
+// one-block ne_finish adds the partials in a fixed order in fp64 and writes
+// H (6x6, symmetric), b, the inlier sum and sum |r| w.  Bound: bytes (40 B a
+// pixel read once).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -33,19 +53,120 @@
 
 namespace {
 
-constexpr int kSums = 29;
-constexpr int kRow = 32;  // partials row stride (floats)
+constexpr int kSums = 29;     // point-to-plane sums
+constexpr int kRgbSums = 27;  // photometric sums: 21 Jr^T Jr, 6 Jr^T (-r)
+constexpr int kRow = 64;      // partials row stride (floats)
 constexpr int kReduceThreads = 256;
+constexpr int kSolveThreads = 64;
+
+// One pixel's point-to-plane terms at world point p against target point q
+// with normal n: r = n.(p - q), J = [n, p x n], w = mask * min(1, delta /
+// |r|) for a Huber delta > 0, else mask.  Adds the 21 upper-triangle sums
+// of J^T J w, the 6 of J^T (-r) w, mask and |r| w to acc[0..28].  Shared by
+// K3 (mask 1 on a gated pixel) and K6.
+__device__ __forceinline__ void accumulate_point_to_plane(
+    float* acc, float px, float py, float pz, float nx, float ny, float nz,
+    float qx, float qy, float qz, float mask, float huber_delta) {
+  const float dx = px - qx, dy = py - qy, dz = pz - qz;
+  const float r = nx * dx + ny * dy + nz * dz;
+  float w = mask;
+  if (huber_delta > 0.0f) w = mask * fminf(1.0f, huber_delta / fmaxf(fabsf(r), 1e-9f));
+  const float j[6] = {nx, ny, nz, py * nz - pz * ny, pz * nx - px * nz,
+                      px * ny - py * nx};
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+#pragma unroll
+    for (int b = a; b < 6; ++b) acc[k++] += j[a] * j[b] * w;
+  }
+#pragma unroll
+  for (int a = 0; a < 6; ++a) acc[21 + a] += j[a] * (-r) * w;
+  acc[27] += mask;
+  acc[28] += fabsf(r) * w;
+}
+
+// One pixel's photometric terms (the reference's rgbStep) at world point p:
+// the residual I_t - I_s against the target intensity gathered at
+// association time, J = [g, p x g] with g = dI/dp_w = R_cw^T dI/dp_c, and
+// dI/dp_c from the target gradients through the projection of the
+// prediction view (C = T_pred_cw, row-major 3x4; fx, fy of the level).
+// The gate is the photometric gate times (z in the prediction camera > 0).
+// Adds 21 upper-triangle sums of J^T J m and 6 of J^T (-r) m to acc[0..26].
+__device__ __forceinline__ void accumulate_photometric(
+    float* acc, float px, float py, float pz, const float* C, float fx,
+    float fy, float i_src, float i_tgt, float gx, float gy, float gate) {
+  const float pcx = C[0] * px + C[1] * py + C[2] * pz + C[3];
+  const float pcy = C[4] * px + C[5] * py + C[6] * pz + C[7];
+  const float pcz = C[8] * px + C[9] * py + C[10] * pz + C[11];
+  if (!(pcz > 0.0f)) return;
+  const float zs = fmaxf(pcz, 1e-6f);
+  const float gpx = gx * fx / zs;
+  const float gpy = gy * fy / zs;
+  const float gpz = -(gpx * pcx + gpy * pcy) / zs;
+  const float gwx = C[0] * gpx + C[4] * gpy + C[8] * gpz;
+  const float gwy = C[1] * gpx + C[5] * gpy + C[9] * gpz;
+  const float gwz = C[2] * gpx + C[6] * gpy + C[10] * gpz;
+  const float r = i_tgt - i_src;
+  const float j[6] = {gwx, gwy, gwz, py * gwz - pz * gwy, pz * gwx - px * gwz,
+                      px * gwy - py * gwx};
+  int k = 0;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) {
+#pragma unroll
+    for (int b = a; b < 6; ++b) acc[k++] += j[a] * j[b] * gate;
+  }
+#pragma unroll
+  for (int a = 0; a < 6; ++a) acc[21 + a] += j[a] * (-r) * gate;
+}
+
+// Sums acc[0..N) over the block's threads (warp shuffles, then one value a
+// warp through shared memory) and writes the N totals to row[0..N).
+template <int N>
+__device__ __forceinline__ void block_sums_to_row(const float* acc,
+                                                  float* __restrict__ row) {
+  __shared__ float warp_sums[kReduceThreads / 32][N];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float x = acc[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      x += __shfl_down_sync(0xffffffffu, x, off);
+    if (lane == 0) warp_sums[warp][k] = x;
+  }
+  __syncthreads();
+  if (threadIdx.x < N) {
+    float s = 0.0f;
+    for (int w = 0; w < kReduceThreads / 32; ++w) s += warp_sums[w][threadIdx.x];
+    row[threadIdx.x] = s;
+  }
+}
+
+// The block partials of `nsum` sums, added in block order in fp64.
+__device__ __forceinline__ void add_partials(const float* __restrict__ partials,
+                                             int nblocks, int nsum,
+                                             double* sums) {
+  if (threadIdx.x < nsum) {
+    double s = 0.0;
+    for (int b = 0; b < nblocks; ++b) s += (double)partials[b * kRow + threadIdx.x];
+    sums[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
 
 __global__ void gather_kernel(const float* __restrict__ u,
                               const float* __restrict__ v,
                               const uint8_t* __restrict__ sel,
                               const float* __restrict__ tvert,
                               const float* __restrict__ tnorm,
-                              const uint8_t* __restrict__ tvalid, int n,
-                              int wt, int ht, float* __restrict__ q,
-                              float* __restrict__ nt,
-                              uint8_t* __restrict__ ok) {
+                              const uint8_t* __restrict__ tvalid,
+                              const float* __restrict__ ti,
+                              const float* __restrict__ tgx,
+                              const float* __restrict__ tgy, int n, int wt,
+                              int ht, float* __restrict__ q,
+                              float* __restrict__ nt, uint8_t* __restrict__ ok,
+                              float* __restrict__ oi, float* __restrict__ ogx,
+                              float* __restrict__ ogy) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   // Round half up, clamped into the target; fmaxf maps NaN to 0.
@@ -59,89 +180,81 @@ __global__ void gather_kernel(const float* __restrict__ u,
   nt[3 * i + 1] = tnorm[3 * flat + 1];
   nt[3 * i + 2] = tnorm[3 * flat + 2];
   ok[i] = (tvalid[flat] != 0 && sel[i] != 0) ? 1 : 0;
+  if (ti != nullptr) {  // the photometric planes, at the same index
+    oi[i] = ti[flat];
+    ogx[i] = tgx[flat];
+    ogy[i] = tgy[flat];
+  }
 }
 
-__global__ void gn_reduce_kernel(const float* __restrict__ sv,
-                                 const float* __restrict__ sn,
-                                 const float* __restrict__ q,
-                                 const float* __restrict__ nt,
-                                 const float* __restrict__ gate, int n,
-                                 const float* __restrict__ T,
-                                 float dist_thresh, float angle_thresh,
-                                 float huber_delta,
-                                 float* __restrict__ partials) {
+template <bool kRgb>
+__global__ void __launch_bounds__(kReduceThreads)
+    gn_reduce_kernel(const float* __restrict__ sv, const float* __restrict__ sn,
+                     const float* __restrict__ q, const float* __restrict__ nt,
+                     const float* __restrict__ gate,
+                     const float* __restrict__ ris,
+                     const float* __restrict__ rit,
+                     const float* __restrict__ rgx,
+                     const float* __restrict__ rgy,
+                     const float* __restrict__ rgate, int n,
+                     const float* __restrict__ T,
+                     const float* __restrict__ Tpc, float fx, float fy,
+                     float dist_thresh, float angle_thresh, float huber_delta,
+                     float* __restrict__ partials) {
+  constexpr int kAcc = kRgb ? kSums + kRgbSums : kSums;
   const float r00 = T[0], r01 = T[1], r02 = T[2], t0 = T[3];
   const float r10 = T[4], r11 = T[5], r12 = T[6], t1 = T[7];
   const float r20 = T[8], r21 = T[9], r22 = T[10], t2 = T[11];
-
-  float acc[kSums];
+  float C[12] = {};
+  if constexpr (kRgb) {
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+    for (int m = 0; m < 12; ++m) C[m] = Tpc[m];
+  }
+
+  float acc[kAcc];
+#pragma unroll
+  for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
 
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += gridDim.x * blockDim.x) {
-    if (gate[i] == 0.0f) continue;
+    const bool geo = gate[i] != 0.0f;
+    float mrg = 0.0f;
+    if constexpr (kRgb) mrg = rgate[i];
+    if (!geo && mrg == 0.0f) continue;
     const float sx = sv[3 * i], sy = sv[3 * i + 1], sz = sv[3 * i + 2];
     const float px = r00 * sx + r01 * sy + r02 * sz + t0;
     const float py = r10 * sx + r11 * sy + r12 * sz + t1;
     const float pz = r20 * sx + r21 * sy + r22 * sz + t2;
-    const float ax = sn[3 * i], ay = sn[3 * i + 1], az = sn[3 * i + 2];
-    const float nwx = r00 * ax + r01 * ay + r02 * az;
-    const float nwy = r10 * ax + r11 * ay + r12 * az;
-    const float nwz = r20 * ax + r21 * ay + r22 * az;
-    const float tx = nt[3 * i], ty = nt[3 * i + 1], tz = nt[3 * i + 2];
-    const float dx = px - q[3 * i];
-    const float dy = py - q[3 * i + 1];
-    const float dz = pz - q[3 * i + 2];
-    const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
-    const float ndot = nwx * tx + nwy * ty + nwz * tz;
-    if (!(dist < dist_thresh && ndot > angle_thresh)) continue;
-    const float r = tx * dx + ty * dy + tz * dz;
-    float w = 1.0f;
-    if (huber_delta > 0.0f) w = fminf(1.0f, huber_delta / fmaxf(fabsf(r), 1e-9f));
-    const float j[6] = {tx, ty, tz, py * tz - pz * ty, pz * tx - px * tz,
-                        px * ty - py * tx};
-    int k = 0;
-#pragma unroll
-    for (int a = 0; a < 6; ++a) {
-#pragma unroll
-      for (int b = a; b < 6; ++b) acc[k++] += j[a] * j[b] * w;
+    if (geo) {
+      const float ax = sn[3 * i], ay = sn[3 * i + 1], az = sn[3 * i + 2];
+      const float nwx = r00 * ax + r01 * ay + r02 * az;
+      const float nwy = r10 * ax + r11 * ay + r12 * az;
+      const float nwz = r20 * ax + r21 * ay + r22 * az;
+      const float tx = nt[3 * i], ty = nt[3 * i + 1], tz = nt[3 * i + 2];
+      const float qx = q[3 * i], qy = q[3 * i + 1], qz = q[3 * i + 2];
+      const float dx = px - qx, dy = py - qy, dz = pz - qz;
+      const float dist = sqrtf(dx * dx + dy * dy + dz * dz);
+      const float ndot = nwx * tx + nwy * ty + nwz * tz;
+      if (dist < dist_thresh && ndot > angle_thresh)
+        accumulate_point_to_plane(acc, px, py, pz, tx, ty, tz, qx, qy, qz, 1.0f,
+                                  huber_delta);
     }
-#pragma unroll
-    for (int a = 0; a < 6; ++a) acc[21 + a] += j[a] * (-r) * w;
-    acc[27] += 1.0f;
-    acc[28] += fabsf(r) * w;
+    if constexpr (kRgb) {
+      if (mrg != 0.0f)
+        accumulate_photometric(acc + kSums, px, py, pz, C, fx, fy, ris[i], rit[i],
+                               rgx[i], rgy[i], mrg);
+    }
   }
-
-  __shared__ float warp_sums[kReduceThreads / 32][kSums];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    float x = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) warp_sums[warp][k] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < kSums) {
-    float s = 0.0f;
-    for (int w = 0; w < kReduceThreads / 32; ++w) s += warp_sums[w][threadIdx.x];
-    partials[blockIdx.x * kRow + threadIdx.x] = s;
-  }
+  block_sums_to_row<kAcc>(acc, partials + blockIdx.x * kRow);
 }
 
 __global__ void gn_solve_kernel(const float* __restrict__ partials,
                                 int nblocks, float damping, float min_valid,
+                                int use_rgb, float rgb_weight,
                                 float* __restrict__ T,
                                 float* __restrict__ stats) {
-  __shared__ double sums[kSums];
-  if (threadIdx.x < kSums) {
-    double s = 0.0;
-    for (int b = 0; b < nblocks; ++b) s += (double)partials[b * kRow + threadIdx.x];
-    sums[threadIdx.x] = s;
-  }
-  __syncthreads();
+  __shared__ double sums[kSums + kRgbSums];
+  add_partials(partials, nblocks, use_rgb ? kSums + kRgbSums : kSums, sums);
   if (threadIdx.x != 0) return;
 
   double H[6][6], bv[6];
@@ -152,10 +265,28 @@ __global__ void gn_solve_kernel(const float* __restrict__ partials,
       H[b][a] = sums[k];
       ++k;
     }
-  for (int a = 0; a < 6; ++a) {
-    bv[a] = sums[21 + a];
-    H[a][a] += (double)damping * fmax(H[a][a], 1.0);
+  for (int a = 0; a < 6; ++a) bv[a] = sums[21 + a];
+  double wr = 0.0;
+  if (use_rgb) {
+    // Trust-fraction combine: the photometric system carries the share
+    // rgb_weight of the joint information, whatever the resolution.
+    const int diag[6] = {0, 6, 11, 15, 18, 20};
+    double trg = 0.0, trr = 0.0;
+    for (int a = 0; a < 6; ++a) {
+      trg += sums[diag[a]];
+      trr += sums[kSums + diag[a]];
+    }
+    wr = (double)rgb_weight * trg / fmax(trr, 1e-20);
+    k = 0;
+    for (int a = 0; a < 6; ++a)
+      for (int b = a; b < 6; ++b) {
+        H[a][b] += wr * sums[kSums + k];
+        H[b][a] = H[a][b];
+        ++k;
+      }
+    for (int a = 0; a < 6; ++a) bv[a] += wr * sums[kSums + 21 + a];
   }
+  for (int a = 0; a < 6; ++a) H[a][a] += (double)damping * fmax(H[a][a], 1.0);
   const double nin = sums[27];
 
   // Cholesky H = L L^T, then forward and back substitution.
@@ -190,7 +321,7 @@ __global__ void gn_solve_kernel(const float* __restrict__ partials,
   const float A = small ? 1.0f - th2 / 6.0f : sinf(th) / th;
   const float hs = sinf(0.5f * th);
   const float B = small ? 0.5f - th2 / 24.0f : 2.0f * hs * hs / th2;
-  const float C = small ? 1.0f / 6.0f - th2 / 120.0f : (1.0f - A) / th2;
+  const float Cc = small ? 1.0f / 6.0f - th2 / 120.0f : (1.0f - A) / th2;
   const float K[3][3] = {{0.0f, -w2, w1}, {w2, 0.0f, -w0}, {-w1, w0, 0.0f}};
   float K2[3][3], R[3][3], V[3][3], t[3];
   for (int a = 0; a < 3; ++a)
@@ -203,7 +334,7 @@ __global__ void gn_solve_kernel(const float* __restrict__ partials,
     for (int b = 0; b < 3; ++b) {
       const float eye = (a == b) ? 1.0f : 0.0f;
       R[a][b] = eye + A * K[a][b] + B * K2[a][b];
-      V[a][b] = eye + B * K[a][b] + C * K2[a][b];
+      V[a][b] = eye + B * K[a][b] + Cc * K2[a][b];
     }
   for (int a = 0; a < 3; ++a) t[a] = V[a][0] * xi[0] + V[a][1] * xi[1] + V[a][2] * xi[2];
 
@@ -218,6 +349,44 @@ __global__ void gn_solve_kernel(const float* __restrict__ partials,
     }
   stats[0] = (float)nin;
   stats[1] = (float)sums[28];
+  stats[2] = (float)wr;
+}
+
+__global__ void __launch_bounds__(kReduceThreads)
+    ne_reduce_kernel(const float* __restrict__ p, const float* __restrict__ nt,
+                     const float* __restrict__ q,
+                     const float* __restrict__ mask, int n, float huber_delta,
+                     float* __restrict__ partials) {
+  float acc[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    const float m = mask[i];
+    if (m == 0.0f) continue;
+    accumulate_point_to_plane(acc, p[3 * i], p[3 * i + 1], p[3 * i + 2],
+                              nt[3 * i], nt[3 * i + 1], nt[3 * i + 2],
+                              q[3 * i], q[3 * i + 1], q[3 * i + 2], m,
+                              huber_delta);
+  }
+  block_sums_to_row<kSums>(acc, partials + blockIdx.x * kRow);
+}
+
+__global__ void ne_finish_kernel(const float* __restrict__ partials,
+                                 int nblocks, float* __restrict__ out) {
+  __shared__ double sums[kSums];
+  add_partials(partials, nblocks, kSums, sums);
+  if (threadIdx.x != 0) return;
+  int k = 0;
+  for (int a = 0; a < 6; ++a)
+    for (int b = a; b < 6; ++b) {
+      out[6 * a + b] = (float)sums[k];
+      out[6 * b + a] = (float)sums[k];
+      ++k;
+    }
+  for (int a = 0; a < 6; ++a) out[36 + a] = (float)sums[21 + a];
+  out[42] = (float)sums[27];
+  out[43] = (float)sums[28];
 }
 
 }  // namespace
@@ -225,35 +394,63 @@ __global__ void gn_solve_kernel(const float* __restrict__ partials,
 extern "C" int ifl_gather_target_maps(const float* u, const float* v,
                                       const uint8_t* sel, const float* tvert,
                                       const float* tnorm,
-                                      const uint8_t* tvalid, int n, int wt,
-                                      int ht, float* q, float* nt,
-                                      uint8_t* ok, void* stream) {
+                                      const uint8_t* tvalid, const float* ti,
+                                      const float* tgx, const float* tgy,
+                                      int n, int wt, int ht, float* q,
+                                      float* nt, uint8_t* ok, float* oi,
+                                      float* ogx, float* ogy, void* stream) {
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
   gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      u, v, sel, tvert, tnorm, tvalid, n, wt, ht, q, nt, ok);
+      u, v, sel, tvert, tnorm, tvalid, ti, tgx, tgy, n, wt, ht, q, nt, ok, oi,
+      ogx, ogy);
   return (int)cudaGetLastError();
 }
 
+// With ris == nullptr the photometric term is off and rit, rgx, rgy,
+// rgate, Tpc, fx, fy and rgb_weight are not read.
 extern "C" int ifl_gn_iterations(const float* sv, const float* sn,
                                  const float* q, const float* nt,
-                                 const float* gate, int n, float* T,
+                                 const float* gate, const float* ris,
+                                 const float* rit, const float* rgx,
+                                 const float* rgy, const float* rgate,
+                                 const float* Tpc, int n, float* T,
                                  float* partials, int nblocks, float* stats,
                                  int inner_n, float dist_thresh,
                                  float angle_thresh, float huber_delta,
-                                 float damping, float min_valid,
-                                 void* stream) {
+                                 float damping, float min_valid, float fx,
+                                 float fy, float rgb_weight, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const int use_rgb = ris != nullptr;
   for (int it = 0; it < inner_n; ++it) {
-    gn_reduce_kernel<<<nblocks, kReduceThreads, 0, s>>>(
-        sv, sn, q, nt, gate, n, T, dist_thresh, angle_thresh, huber_delta,
-        partials);
+    if (use_rgb)
+      gn_reduce_kernel<true><<<nblocks, kReduceThreads, 0, s>>>(
+          sv, sn, q, nt, gate, ris, rit, rgx, rgy, rgate, n, T, Tpc, fx, fy,
+          dist_thresh, angle_thresh, huber_delta, partials);
+    else
+      gn_reduce_kernel<false><<<nblocks, kReduceThreads, 0, s>>>(
+          sv, sn, q, nt, gate, ris, rit, rgx, rgy, rgate, n, T, Tpc, fx, fy,
+          dist_thresh, angle_thresh, huber_delta, partials);
     int err = (int)cudaGetLastError();
     if (err != 0) return err;
-    gn_solve_kernel<<<1, 32, 0, s>>>(partials, nblocks, damping, min_valid,
-                                     T, stats);
+    gn_solve_kernel<<<1, kSolveThreads, 0, s>>>(partials, nblocks, damping,
+                                                min_valid, use_rgb, rgb_weight,
+                                                T, stats);
     err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
   return 0;
+}
+
+extern "C" int ifl_normal_equations(const float* p, const float* nt,
+                                    const float* q, const float* mask, int n,
+                                    float huber_delta, float* partials,
+                                    int nblocks, float* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  ne_reduce_kernel<<<nblocks, kReduceThreads, 0, s>>>(p, nt, q, mask, n,
+                                                      huber_delta, partials);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  ne_finish_kernel<<<1, kSolveThreads, 0, s>>>(partials, nblocks, out);
+  return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 """Synthetic RGB-D frames: analytic SDF scene + sphere tracing.
 
 Port of the fixed scene of ``datasets/synthetic.py`` (``scene_sdf``,
-``render_frame``, ``orbit_trajectory``): the interior of a 2.4 m room box
-holding a sphere, a box and a cylinder (instance ids 1..3, walls 0), with
-exact depth and exact ground-truth poses.  Frames are rendered on the
+``render_frame``, ``orbit_trajectory``, ``handheld_trajectory``): the
+interior of a 2.4 m room box holding a sphere, a box and a cylinder
+(instance ids 1..3, walls 0), with exact depth and exact ground-truth
+poses.  Frames are rendered on the
 device, so a run on the card needs neither JAX nor any dataset.
 """
 
@@ -16,6 +17,7 @@ import torch
 
 from instancefusion_tpu_torch import device as _device
 from instancefusion_tpu_torch.geometry.camera import Intrinsics, ray_directions
+from instancefusion_tpu_torch.geometry.se3 import se3_exp
 from instancefusion_tpu_torch.models.segmentation import Segmentation
 
 
@@ -167,3 +169,25 @@ def orbit_trajectory(num_frames: int, radius: float = 0.45, center=None,
     T[:, :3, :3] = torch.stack([right, down, fwd], dim=-1)
     T[:, :3, 3] = eyes
     return T
+
+
+def handheld_trajectory(num_frames: int, radius: float = 0.45, sweep: float = 1.6,
+                        shake_rot: float = 0.02, shake_trans: float = 0.012,
+                        device=None) -> torch.Tensor:
+    """fr1-class handheld motion: a fast arc with rotational shake, (N, 4, 4).
+
+    The orbit's arc swept faster, with a smooth multi-sine SE(3) shake on
+    the right of each pose (deterministic; peak ~shake_rot rad and
+    ~shake_trans m frame-to-frame deltas).
+    """
+    base = orbit_trajectory(num_frames, radius=radius, sweep=sweep, device=device)
+    t = torch.linspace(0.0, 1.0, num_frames, dtype=torch.float32, device=base.device)
+    xi = torch.stack([
+        shake_trans * torch.sin(t * 37.0),
+        shake_trans * torch.sin(t * 29.0 + 1.3),
+        shake_trans * 0.6 * torch.sin(t * 43.0 + 0.4),
+        shake_rot * torch.sin(t * 31.0 + 2.1),
+        shake_rot * torch.sin(t * 41.0 + 0.9),
+        shake_rot * 0.5 * torch.sin(t * 23.0 + 1.7),
+    ], dim=-1)
+    return base @ se3_exp(xi)

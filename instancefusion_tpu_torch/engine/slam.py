@@ -7,9 +7,13 @@ The port runs the block-map engine with splat prediction
 integrate (K4) and splat prediction (K5).  With ``use_instances`` (config3)
 a frame that carries a segmentation goes through ``step_seg``: the same
 step, then ``fuse_segmentation`` (mask refinement, predicted-id sampling,
-instance merges and association, label votes with K7).  The dense map,
-the marched raycaster, observation stamps and the consistency sentinel
-are later slices: configurations that ask for them raise.
+instance merges and association, label votes with K7).  With
+``rgb_weight > 0`` and ``use_color`` the ICP adds the photometric term
+against the predicted color's intensity; ``track_stamps`` keeps per-slot
+observation stamps for ``engine/localloop.py``; ``consistency_check`` runs
+the drift sentinel, a coarse frame-to-frame ICP beside the frame-to-model
+one.  The dense map and sharded maps are later slices: configurations
+that ask for them raise.
 
 The state is a ``NamedTuple`` of tensors on one device, as in the
 reference.  ``step`` keeps everything on the device (no host read per
@@ -22,6 +26,7 @@ carries it as a plain int (``frame_count``) beside the device counter
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -47,6 +52,15 @@ class SlamState(NamedTuple):
     votes: labels.LabelVotes | None = None
     table: inst.InstanceTable | None = None
     frame_count: int = 0  # host copy of frame_idx (color cadence)
+    # Per-slot observation stamps i32[capacity, 2] = (last fused frame,
+    # 1-based; unseen gap before the current update streak), None unless
+    # cfg.track_stamps: the revisit evidence of engine/localloop.py.
+    stamp: torch.Tensor | None = None
+    # Drift sentinel (cfg.consistency_check): the previous frame's
+    # coarse-level (vmap, nmap, valid) and the world-frame EWMA f32[3] of
+    # the frame-to-frame vs frame-to-model translation disagreement.
+    prev_coarse: tuple | None = None
+    drift_ewma: torch.Tensor | None = None
 
 
 class StepInfo(NamedTuple):
@@ -54,6 +68,10 @@ class StepInfo(NamedTuple):
     residual: torch.Tensor
     track_ok: torch.Tensor
     fused_voxels: torch.Tensor  # valid depth pixels fused this frame
+    # Drift sentinel (cfg.consistency_check): |EWMA| (m) and whether it
+    # crossed cfg.consistency_thresh this frame.
+    drift_ewma: torch.Tensor | None = None
+    drift_alarm: torch.Tensor | None = None
 
 
 def _check_supported(cfg: EngineConfig) -> None:
@@ -62,9 +80,6 @@ def _check_supported(cfg: EngineConfig) -> None:
             "this port runs the block map with splat prediction only "
             "(map_kind='blocks', RaycastConfig(use_splat=True))"
         )
-    for flag in ("track_stamps", "consistency_check"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"EngineConfig.{flag} is not ported yet")
     if cfg.num_shards != 1:
         raise NotImplementedError("sharded maps are not ported yet")
 
@@ -91,6 +106,15 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
     if cfg.use_instances:  # on the block map, which _check_supported ensures
         votes = labels.allocate(cfg.tsdf, dev)
         table = inst.allocate(cfg.instances, dev)
+    stamp = prev_coarse = drift_ewma = None
+    if cfg.track_stamps:
+        stamp = torch.zeros((cfg.tsdf.table_capacity, 2), dtype=torch.int32, device=dev)
+    if cfg.consistency_check:
+        s = 1 << max(cfg.icp.levels - 2, 0)
+        hc, wc = h // s, w // s
+        prev_coarse = (torch.zeros((hc, wc, 3), **f32), torch.zeros((hc, wc, 3), **f32),
+                       torch.zeros((hc, wc), dtype=torch.bool, device=dev))
+        drift_ewma = torch.zeros((3,), **f32)
     return SlamState(
         T_wc=T0,
         volume=blocks.allocate(cfg.tsdf, dev, with_color=cfg.use_color),
@@ -101,6 +125,9 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
         T_prev_wc=T0.clone(),
         votes=votes,
         table=table,
+        stamp=stamp,
+        prev_coarse=prev_coarse,
+        drift_ewma=drift_ewma,
     )
 
 
@@ -156,11 +183,20 @@ def tsdf_integrate_count(depth: torch.Tensor) -> torch.Tensor:
 
 
 def _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok):
+    """Fuse the gated depth, predict, and update the stamps when kept;
+    returns (volume, pred, stamp)."""
     depth_masked = torch.where(fuse_ok, d0, torch.zeros_like(d0))
-    return _splat_map_update(
+    volume, pred = _splat_map_update(
         cfg, state.volume, state.pred.depth, depth_masked,
         color if cfg.use_color else None, T_new, state.frame_count,
     )
+    stamp = state.stamp
+    if stamp is not None:
+        # Allocation made a new n_active; the incoming one is the slot
+        # count before this frame (integration updates only the payload).
+        stamp = _update_stamps(cfg, stamp, volume, state.volume.n_active, T_new,
+                               fuse_ok, state.frame_idx)
+    return volume, pred, stamp
 
 
 def _inputs(state: SlamState, depth, color):
@@ -169,17 +205,83 @@ def _inputs(state: SlamState, depth, color):
             torch.as_tensor(color, dtype=torch.float32, device=dev))
 
 
+def _update_stamps(cfg: EngineConfig, stamp, volume, n_before, T_new, fuse_ok,
+                   frame_idx):
+    """Per-slot (last_fused, gap) update for this frame's in-view blocks.
+
+    Stamps are 1-based frame numbers (0 = never fused).  A block updated
+    after going unseen for more than 2 frames records that gap, sticky
+    until ``localloop.reset_gaps``: the revisit evidence for local loop
+    closure.  Slots allocated this frame (from ``n_before``, the slot count
+    before its allocation, to ``volume.n_active``) are new geometry, not
+    revisits: their gap stays 0.
+    """
+    f = frame_idx + 1
+    inview = blocks.frustum_mask(volume, T_new, cfg.intrinsics, cfg.tsdf,
+                                 cfg.raycast.near, cfg.raycast.far) & fuse_ok
+    last, gap = stamp[:, 0], stamp[:, 1]
+    gap_new = torch.where(inview & (f - last > 2) & (last > 0), f - last, gap)
+    last_new = torch.where(inview, f, last)
+    slot_ids = torch.arange(stamp.shape[0], dtype=torch.int32, device=stamp.device)
+    fresh = (slot_ids >= n_before) & (slot_ids < volume.n_active)
+    last_new = torch.where(fresh, f, last_new)
+    gap_new = torch.where(fresh, torch.zeros_like(gap_new), gap_new)
+    return torch.stack([last_new, gap_new], dim=-1)
+
+
+def _consistency_update(cfg: EngineConfig, state: SlamState, pyr, result, T_new):
+    """Drift sentinel: a coarse frame-to-frame ICP beside frame-to-model.
+
+    Slow map-feedback drift keeps inliers high, so the health gate cannot
+    see it.  One level above the coarsest, the frame is registered against
+    the previous frame's maps (no map in the loop), seeded at the
+    frame-to-model increment; the translation disagreement, rotated into
+    the world frame, feeds a vector EWMA: per-frame ICP noise averages out,
+    a dragging map's bias does not.  Returns (this frame's coarse maps, the
+    EWMA, its norm, the alarm), or four Nones when the check is off; every
+    value stays on the device.
+    """
+    if not cfg.consistency_check:
+        return None, None, None, None
+    lvl = max(cfg.icp.levels - 2, 0)
+    coarse = pyr[lvl]
+    cur = (coarse["vmap"], coarse["nmap"], coarse["valid"])
+    pv, pn, pval = state.prev_coarse
+    T_rel_f2m = se3_inverse(state.T_wc) @ T_new  # previous camera -> this one
+    icp_cfg = dataclasses.replace(
+        cfg.icp, levels=1, iters=(6,), rgb_weight=0.0,
+        min_valid=max(cfg.icp.min_valid // 8, 20), assoc_every=2,
+    )
+    eye = torch.eye(4, dtype=torch.float32, device=T_new.device)
+    f2f = icp.track([coarse], pv, pn, pval, T_rel_f2m, eye,
+                    cfg.intrinsics.level(lvl), icp_cfg)
+    delta = se3_inverse(f2f.T_wc) @ T_rel_f2m
+    d_w = state.T_wc[:3, :3] @ delta[:3, 3]
+    ok = result.valid & f2f.valid & (state.frame_idx > 0)
+    a = cfg.consistency_alpha
+    ewma = torch.where(ok, (1 - a) * state.drift_ewma + a * d_w, state.drift_ewma)
+    mag = torch.linalg.norm(ewma)
+    # The alarm is held down while the map settles (the first ~10 frames
+    # fuse into a near-empty model; their disagreement is honest).
+    return cur, ewma, mag, (mag > cfg.consistency_thresh) & (state.frame_idx > 10)
+
+
 def step(cfg: EngineConfig, state: SlamState, depth, color):
     """Track -> fuse -> predict for one RGB-D frame; returns (state, info)."""
     _check_supported(cfg)
     _device.resolve(state.T_wc.device)
     depth, color = _inputs(state, depth, color)
     intr = cfg.intrinsics
-    pyr = preprocess.build_frame_pyramid(depth, intr, cfg.preprocess, cfg.icp.levels)
+    # The intensities feed only the photometric term: made only when it runs.
+    use_rgb = cfg.use_color and cfg.icp.rgb_weight > 0.0
+    intensity = preprocess.rgb_to_intensity(color) if use_rgb else None
+    pyr = preprocess.build_frame_pyramid(depth, intr, cfg.preprocess, cfg.icp.levels,
+                                         intensity)
+    pred_intensity = preprocess.rgb_to_intensity(state.pred.color) if use_rgb else None
     T_seed = _motion_seed(state.T_wc, state.T_prev_wc, cfg.icp.vel_seed)
     result = icp.track(
         pyr, state.pred.vertex_w, state.pred.normal_w, state.pred.valid,
-        T_seed, state.pred_T_wc, intr, cfg.icp,
+        T_seed, state.pred_T_wc, intr, cfg.icp, pred_intensity=pred_intensity,
     )
     # Health gate: on failure fuse nothing and keep the pose; frame 0 fails
     # by construction (empty prediction) but must fuse.
@@ -188,7 +290,9 @@ def step(cfg: EngineConfig, state: SlamState, depth, color):
     T_new = torch.where(result.valid, result.T_wc, state.T_wc)
     d0 = pyr[0]["depth"]
     fused = torch.where(fuse_ok, tsdf_integrate_count(d0), torch.zeros((), device=d0.device))
-    volume, pred = _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok)
+    volume, pred, stamp = _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok)
+    prev_coarse, drift_ewma, drift_mag, drift_alarm = _consistency_update(
+        cfg, state, pyr, result, T_new)
     new_state = state._replace(
         T_wc=T_new,
         volume=volume,
@@ -201,9 +305,13 @@ def step(cfg: EngineConfig, state: SlamState, depth, color):
         # On failure T_new == T_wc, so prev := T_new keeps the velocity zero.
         T_prev_wc=torch.where(result.valid, state.T_wc, T_new),
         frame_count=state.frame_count + 1,
+        stamp=stamp,
+        prev_coarse=prev_coarse,
+        drift_ewma=drift_ewma,
     )
     info = StepInfo(inliers=result.inliers, residual=result.residual,
-                    track_ok=fuse_ok, fused_voxels=fused)
+                    track_ok=fuse_ok, fused_voxels=fused,
+                    drift_ewma=drift_mag, drift_alarm=drift_alarm)
     return new_state, info
 
 
@@ -216,13 +324,14 @@ def step_gt(cfg: EngineConfig, state: SlamState, depth, color, T_gt_wc):
     pyr = preprocess.build_frame_pyramid(depth, cfg.intrinsics, cfg.preprocess, 1)
     d0 = pyr[0]["depth"]
     fuse_ok = torch.ones((), dtype=torch.bool, device=d0.device)
-    volume, pred = _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok)
+    volume, pred, stamp = _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok)
     new_state = state._replace(
         T_wc=T_new, volume=volume, pred=pred, pred_T_wc=T_new,
         frame_idx=state.frame_idx + 1,
         lost_frames=torch.zeros_like(state.lost_frames),
         T_prev_wc=state.T_wc,
         frame_count=state.frame_count + 1,
+        stamp=stamp,
     )
     zero = torch.zeros((), device=d0.device)
     info = StepInfo(inliers=zero, residual=zero, track_ok=fuse_ok,
@@ -285,7 +394,8 @@ def run_chunk(cfg: EngineConfig, state: SlamState, depths, colors):
     for d, c in zip(depths, colors):
         state, info = step(cfg, state, d, c)
         infos.append(info)
-    return state, StepInfo(*(torch.stack(x) for x in zip(*infos)))
+    return state, StepInfo(*(None if x[0] is None else torch.stack(x)
+                             for x in zip(*infos)))
 
 
 def run_sequence(cfg: EngineConfig, frames, T_init_wc=None, device=None):

@@ -7,7 +7,12 @@ fixed correspondences (kernel K3), coarse to fine.  Association re-runs
 every ``IcpConfig.assoc_every`` steps.  Everything stays on the device: the
 health gate and the pose choice are ``torch.where``, never a host branch.
 
-The photometric term (``rgb_weight > 0``) is not ported yet and raises.
+With ``rgb_weight > 0`` and a predicted intensity, the photometric term
+(the reference's rgbStep) joins: K2 also gathers the predicted intensity
+and its gradients, and K3 adds the photometric system at the trust
+fraction ``rgb_weight``.  ``reduce_equations`` and
+``build_normal_equations``, the one-linearization entry points, reach
+kernel K6; no per-frame path calls them.
 """
 
 from __future__ import annotations
@@ -23,11 +28,12 @@ from instancefusion_tpu_torch.geometry.se3 import (
     se3_inverse,
     transform_points,
 )
-from instancefusion_tpu_torch.ops.common import decimate
+from instancefusion_tpu_torch.ops.common import decimate, interior
 from instancefusion_tpu_torch.ops.kernels.icp import (
     gather_target_maps,
     gn_iterations,
     normal_equations,
+    rgb_normal_equations_ref,
     solve_increment as _solve,
 )
 
@@ -37,13 +43,6 @@ class TrackResult(NamedTuple):
     inliers: torch.Tensor  # () f32 associated pixel count at the finest level
     residual: torch.Tensor  # () f32 mean |point-to-plane residual| (m)
     valid: torch.Tensor  # () bool tracking-health gate passed
-
-
-def _require_geometric(cfg: IcpConfig) -> None:
-    if cfg.rgb_weight > 0.0:
-        raise NotImplementedError(
-            "the photometric ICP term is not ported yet; use rgb_weight=0"
-        )
 
 
 def association_inputs(vmap_src_c, valid_src, T_est_wc, T_tgt_cw, intr: Intrinsics):
@@ -65,21 +64,30 @@ def associate(
     T_est_wc: torch.Tensor,  # (4,4) current estimate for the new frame
     T_tgt_cw: torch.Tensor,  # (4,4) world->camera of the prediction view
     intr: Intrinsics,
+    tgt_rgb=None,  # optional (intensity, gx, gy) target planes (Ht,Wt)
 ):
     """Projective data association; returns (q_w (HW,3), n_t (HW,3), ok (HW,)).
 
     The target pixel is the nearest one, rounding half up (ceil(x - 0.5)).
+    With ``tgt_rgb`` the photometric targets ride the same gather and the
+    return gains (i_t, gx_t, gy_t, ok), each (HW,).
     """
     u, v, sel = association_inputs(vmap_src_c, valid_src, T_est_wc, T_tgt_cw, intr)
-    return gather_target_maps(
+    planes = None if tgt_rgb is None else tuple(p.contiguous() for p in tgt_rgb)
+    out = gather_target_maps(
         u, v, sel,
         tgt_vertex_w.contiguous(), tgt_normal_w.contiguous(), tgt_valid.contiguous(),
+        planes,
     )
+    if tgt_rgb is None:
+        return out
+    q_w, n_t, ok, (i_t, gx_t, gy_t) = out
+    return q_w, n_t, ok, (i_t, gx_t, gy_t, ok)
 
 
 def reduce_equations(vmap_src_c, nmap_src_c, valid_src, q_w, n_t, assoc_valid,
                      T_est_wc, cfg: IcpConfig):
-    """One Gauss-Newton linearization on fixed correspondences.
+    """One Gauss-Newton linearization on fixed correspondences (kernel K6).
 
     Returns (H 6x6, b 6, inliers, sum |r| w); J = [n, p_w x n].
     """
@@ -89,7 +97,46 @@ def reduce_equations(vmap_src_c, nmap_src_c, valid_src, q_w, n_t, assoc_valid,
     n_dot = torch.sum(n_w * n_t, dim=-1)
     mask = (valid_src.reshape(-1) & assoc_valid & (dist < cfg.dist_thresh)
             & (n_dot > cfg.angle_thresh))
-    return normal_equations(p_w, n_t, q_w, mask.float(), cfg.huber_delta)
+    return normal_equations(p_w.contiguous(), n_t.contiguous(), q_w.contiguous(),
+                            mask.float(), cfg.huber_delta)
+
+
+def build_normal_equations(vmap_src_c, nmap_src_c, valid_src, tgt_vertex_w,
+                           tgt_normal_w, tgt_valid, T_est_wc, T_tgt_cw,
+                           intr: Intrinsics, cfg: IcpConfig):
+    """One ICP linearization with fresh association (associate + reduce)."""
+    q_w, n_t, assoc_valid = associate(
+        vmap_src_c, valid_src, tgt_vertex_w, tgt_normal_w, tgt_valid,
+        T_est_wc, T_tgt_cw, intr,
+    )
+    return reduce_equations(vmap_src_c, nmap_src_c, valid_src, q_w, n_t,
+                            assoc_valid, T_est_wc, cfg)
+
+
+def intensity_gradients(tgt_intensity: torch.Tensor):
+    """Central-difference image gradients of the predicted intensity.
+
+    Border rows and columns are zeroed: a zero gradient makes a border
+    correspondence contribute nothing to the photometric system.
+    """
+    h, w = tgt_intensity.shape
+    gx = 0.5 * (torch.roll(tgt_intensity, -1, 1) - torch.roll(tgt_intensity, 1, 1))
+    gy = 0.5 * (torch.roll(tgt_intensity, -1, 0) - torch.roll(tgt_intensity, 1, 0))
+    inside = interior(h, w, tgt_intensity.device)
+    zero = torch.zeros_like(gx)
+    return torch.where(inside, gx, zero), torch.where(inside, gy, zero)
+
+
+def reduce_rgb_equations(vmap_src_c, intensity_src, i_t, gx_t, gy_t, rgb_valid,
+                         T_est_wc, T_tgt_cw, intr: Intrinsics):
+    """Photometric GN system on fixed gathered targets: r = I_t - I_src.
+
+    Returns (H 6x6, b 6, gated pixels, sum |r| over them).
+    """
+    p_w = transform_points(T_est_wc, vmap_src_c.reshape(-1, 3))
+    return rgb_normal_equations_ref(p_w, T_tgt_cw, intr.fx, intr.fy,
+                                    intensity_src.reshape(-1), i_t, gx_t, gy_t,
+                                    rgb_valid.float())
 
 
 def solve_increment(H6, b6, cfg: IcpConfig):
@@ -126,10 +173,15 @@ def track(
     T_pred_wc: torch.Tensor,  # pose the prediction was rendered from
     intr: Intrinsics,
     cfg: IcpConfig,
+    pred_intensity: torch.Tensor | None = None,  # full-res predicted intensity
 ) -> TrackResult:
-    """Coarse-to-fine projective ICP against the predicted model view."""
-    _require_geometric(cfg)
+    """Coarse-to-fine projective ICP against the predicted model view.
+
+    The photometric term joins when ``cfg.rgb_weight > 0`` and a predicted
+    intensity is given; the source pyramid then carries 'intensity'.
+    """
     T_pred_cw = se3_inverse(T_pred_wc)
+    use_rgb = cfg.rgb_weight > 0.0 and pred_intensity is not None
     T = T_init_wc
     inliers = res_mean = None
     for lvl in range(cfg.levels - 1, -1, -1):  # coarse -> fine
@@ -138,17 +190,29 @@ def track(
         tv, tn, tval = _subsample_maps(pred_vertex_w, pred_normal_w, pred_valid, lvl)
         src_v = src["vmap"].reshape(-1, 3).contiguous()
         src_n = src["nmap"].reshape(-1, 3).contiguous()
+        tgt_rgb = None
+        if use_rgb:
+            ti = decimate(pred_intensity, 1 << lvl).contiguous()
+            tgt_rgb = (ti, *intensity_gradients(ti))
+            i_src = src["intensity"].reshape(-1).contiguous()
         inner_n, outer_n = level_schedule(cfg, lvl)
         for _ in range(outer_n):
-            q_w, n_t, a_ok = associate(
-                src["vmap"], src["valid"], tv, tn, tval, T, T_pred_cw, intr_l
+            out = associate(
+                src["vmap"], src["valid"], tv, tn, tval, T, T_pred_cw, intr_l, tgt_rgb
             )
+            q_w, n_t, a_ok = out[:3]
             gate = (src["valid"].reshape(-1) & a_ok).float()
+            rgb_kw = {}
+            if use_rgb:
+                i_t, gx_t, gy_t, rgb_ok = out[3]
+                rgb_kw = dict(rgb=(i_src, i_t, gx_t, gy_t, rgb_ok.float()),
+                              T_pred_cw=T_pred_cw, rgb_intr=(intr_l.fx, intr_l.fy),
+                              rgb_weight=cfg.rgb_weight)
             T, inliers, res_sum = gn_iterations(
                 src_v, src_n, q_w, n_t, gate, T,
                 inner_n=inner_n, dist_thresh=cfg.dist_thresh,
                 angle_thresh=cfg.angle_thresh, huber_delta=cfg.huber_delta,
-                damping=cfg.damping, min_valid=cfg.min_valid,
+                damping=cfg.damping, min_valid=cfg.min_valid, **rgb_kw,
             )
         res_mean = res_sum / torch.clamp(inliers, min=1.0)
     ok = (inliers >= cfg.min_valid) & torch.all(torch.isfinite(T))

@@ -1,22 +1,26 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
 
 K1 ``preprocess.fused_preprocess``, K2 ``icp.gather_target_maps``, K3
-``icp.gn_iterations``, K4 ``tsdf.integrate``, K5 ``raycast.splat_planes``
-and K7 ``labels.label_vote``.  Each wrapper launches its kernel for CUDA
-tensors and runs its plain version for CPU tensors.
+``icp.gn_iterations``, K4 ``tsdf.integrate``, K5 ``raycast.splat_planes``,
+K6 ``icp.normal_equations`` and K7 ``labels.label_vote``.  Each wrapper
+launches its kernel for CUDA tensors and runs its plain version for CPU
+tensors.
 """
 
 from instancefusion_tpu_torch.ops.kernels import icp, labels, preprocess, raycast, tsdf
 
 
 def wrappers():
-    """The kernel wrappers by kernel id; each carries a ``launches`` count."""
+    """The kernel wrappers by kernel id; each carries a ``launches`` count
+    (K2 and K3 also ``launches_rgb``, their launches with the photometric
+    planes; K5 ``launches_color``, its launches with color)."""
     return {
         "K1": preprocess.fused_preprocess,
         "K2": icp.gather_target_maps,
         "K3": icp.gn_iterations,
         "K4": tsdf.integrate,
         "K5": raycast.splat_planes,
+        "K6": icp.normal_equations,
         "K7": labels.label_vote,
     }
 
@@ -24,3 +28,6 @@ def wrappers():
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        for variant in ("launches_rgb", "launches_color"):
+            if hasattr(fn, variant):
+                setattr(fn, variant, 0)

@@ -1,9 +1,13 @@
-"""ICP kernels K2 (association gather) and K3 (Gauss-Newton iterations).
+"""ICP kernels K2 (association gather), K3 (Gauss-Newton iterations) and K6
+(the normal equations of one linearization).
 
 Each wrapper runs its CUDA kernel (``csrc/icp.cu``) for CUDA tensors and its
-plain PyTorch version for CPU tensors; it never falls back from one to the
-other.  ``gather_target_maps.launches`` and ``gn_iterations.launches`` count
-the wrapper calls that launched the kernels.
+plain PyTorch version, the ``*_ref`` function beside it, for CPU tensors; it
+never falls back from one to the other.  A plain version stays plain: it
+launches no kernel whatever its tensors' device, so the kernel can be held
+against it on the card.  ``launches`` on each wrapper counts the calls that
+launched its kernel; ``launches_rgb`` on K2 and K3 counts those among them
+that carried the photometric planes.
 """
 
 from __future__ import annotations
@@ -15,14 +19,18 @@ import torch
 from instancefusion_tpu_torch.geometry.se3 import se3_exp
 from instancefusion_tpu_torch.ops.kernels import _build
 
-# Fixed grid of the K3 reduction: the per-block partials are added in this
-# order by the solve kernel, so the sums do not depend on scheduling.
+# Fixed grid of the K3 and K6 reductions: the per-block partials are added
+# in this order by the solve and finish kernels, so the sums do not depend
+# on scheduling.
 GN_BLOCKS = 264  # 2 per SM on an H100
+_ROW = 64  # partials row stride (floats): 29 geometric + 27 photometric sums
+_NE_OUT = 44  # K6 output: H 36, b 6, inliers, sum |r| w
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ifl_gather_target_maps": [_P] * 6 + [_I] * 3 + [_P] * 4,
-    "ifl_gn_iterations": [_P] * 5 + [_I, _P, _P, _I, _P, _I] + [_F] * 5 + [_P],
+    "ifl_gather_target_maps": [_P] * 9 + [_I] * 3 + [_P] * 7,
+    "ifl_gn_iterations": [_P] * 11 + [_I, _P, _P, _I, _P, _I] + [_F] * 8 + [_P],
+    "ifl_normal_equations": [_P] * 4 + [_I, _F, _P, _I, _P, _P],
 }
 
 
@@ -30,15 +38,23 @@ def _lib():
     return _build.load("icp", _SIGNATURES)
 
 
+def _check_f32(**tensors) -> None:
+    for name, t in tensors.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, not {t.dtype}")
+
+
 # --------------------------------------------------------------------- K2
 
 
-def gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid):
+def gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid,
+                           tgt_rgb=None):
     """Plain K2: nearest target pixel, rounding half up, clamped into the map.
 
     Gathers at (ceil(v - 0.5), ceil(u - 0.5)); valid = target valid & sel.
-    Equal, bit for bit, to the direct-gather branch of the reference's
-    ``ops/icp.associate``.
+    With ``tgt_rgb`` = (intensity, gx, gy) planes it also gathers those at
+    the same pixel.  Equal, bit for bit, to the direct-gather branch of the
+    reference's ``ops/icp.associate``.
     """
     ht, wt = tgt_valid.shape
 
@@ -49,47 +65,73 @@ def gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid):
     q = tgt_vertex.reshape(-1, 3)[flat]
     n_t = tgt_normal.reshape(-1, 3)[flat]
     ok = tgt_valid.reshape(-1)[flat] & sel
-    return q, n_t, ok
+    if tgt_rgb is None:
+        return q, n_t, ok
+    return q, n_t, ok, tuple(p.reshape(-1)[flat] for p in tgt_rgb)
 
 
-def gather_target_maps(u, v, sel, tgt_vertex, tgt_normal, tgt_valid):
+def gather_target_maps(u, v, sel, tgt_vertex, tgt_normal, tgt_valid, tgt_rgb=None):
     """Association gather for N source pixels.
 
     u, v: f32[N] projected target coordinates; sel: bool[N] pixels worth
     gathering (valid source, in image, in front of the camera);
-    tgt_vertex, tgt_normal: f32[Ht, Wt, 3]; tgt_valid: bool[Ht, Wt].
-    Returns (q f32[N, 3], n_t f32[N, 3], ok bool[N]).
+    tgt_vertex, tgt_normal: f32[Ht, Wt, 3]; tgt_valid: bool[Ht, Wt];
+    tgt_rgb: optional (intensity, gx, gy), each f32[Ht, Wt].
+    Returns (q f32[N, 3], n_t f32[N, 3], ok bool[N]) and, with ``tgt_rgb``,
+    a fourth entry (i_t, gx_t, gy_t), each f32[N].
     """
     if u.device.type == "cpu":
-        return gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid)
-    _build.check_tensors(dict(u=u, v=v, sel=sel, tgt_vertex=tgt_vertex,
-                              tgt_normal=tgt_normal, tgt_valid=tgt_valid), u.device)
+        return gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid,
+                                      tgt_rgb)
+    tensors = dict(u=u, v=v, sel=sel, tgt_vertex=tgt_vertex, tgt_normal=tgt_normal,
+                   tgt_valid=tgt_valid)
+    if tgt_rgb is not None:
+        planes = dict(zip(("tgt_intensity", "tgt_gx", "tgt_gy"), tgt_rgb))
+        _check_f32(**planes)
+        for name, x in planes.items():
+            if x.shape != tgt_valid.shape:
+                raise ValueError(f"{name} must have the target's shape")
+        tensors.update(planes)
+    _build.check_tensors(tensors, u.device)
     n = u.shape[0]
     ht, wt = tgt_valid.shape
     q = torch.empty((n, 3), dtype=torch.float32, device=u.device)
     n_t = torch.empty_like(q)
     ok = torch.empty((n,), dtype=torch.bool, device=u.device)
+    outs = ([torch.empty((n,), dtype=torch.float32, device=u.device) for _ in range(3)]
+            if tgt_rgb is not None else None)
     p = _build.ptr
+
+    def opt(ts, i):
+        return None if ts is None else p(ts[i])
+
     err = _lib().ifl_gather_target_maps(
         p(u), p(v), p(sel), p(tgt_vertex), p(tgt_normal), p(tgt_valid),
-        n, wt, ht, p(q), p(n_t), p(ok), _build.stream_handle(),
+        opt(tgt_rgb, 0), opt(tgt_rgb, 1), opt(tgt_rgb, 2), n, wt, ht,
+        p(q), p(n_t), p(ok), opt(outs, 0), opt(outs, 1), opt(outs, 2),
+        _build.stream_handle(),
     )
     _build.check(err, "gather_target_maps")
     gather_target_maps.launches += 1
-    return q, n_t, ok
+    if outs is None:
+        return q, n_t, ok
+    gather_target_maps.launches_rgb += 1
+    return q, n_t, ok, tuple(outs)
 
 
 gather_target_maps.launches = 0
+gather_target_maps.launches_rgb = 0
 
 
-# --------------------------------------------------------------------- K3
+# ------------------------------------------------------------------ K6, K3
 
 
-def normal_equations(p_w, n_t, q_w, mask, huber_delta: float):
-    """The 29 point-to-plane sums as (H 6x6, b 6, inliers, sum |r| w).
+def normal_equations_ref(p_w, n_t, q_w, mask, huber_delta: float):
+    """Plain K6: the 29 point-to-plane sums as (H 6x6, b 6, inliers, sum |r| w).
 
     p_w: transformed source points, q_w/n_t: associated target points and
-    normals, mask: f32 gate.  J = [n, p x n], left world-frame increment.
+    normals, mask: f32 gate.  J = [n, p x n], left world-frame increment,
+    w = mask x Huber weight.
     """
     diff = p_w - q_w
     r = torch.sum(n_t * diff, dim=-1)
@@ -104,6 +146,85 @@ def normal_equations(p_w, n_t, q_w, mask, huber_delta: float):
     return H6, b6, torch.sum(mask), torch.sum(torch.abs(r) * w)
 
 
+def normal_equations(p_w, n_t, q_w, mask, huber_delta: float):
+    """K6: the normal equations of one linearization on fixed correspondences.
+
+    p_w, n_t, q_w: f32[N, 3]; mask: f32[N].  Returns (H f32[6, 6], b f32[6],
+    inliers f32[], sum |r| w f32[]), on the device of the inputs.
+    """
+    if p_w.device.type == "cpu":
+        return normal_equations_ref(p_w, n_t, q_w, mask, huber_delta)
+    _check_f32(p_w=p_w, n_t=n_t, q_w=q_w, mask=mask)
+    _build.check_tensors(dict(p_w=p_w, n_t=n_t, q_w=q_w, mask=mask), p_w.device)
+    dev = p_w.device
+    partials = torch.empty((GN_BLOCKS, _ROW), dtype=torch.float32, device=dev)
+    out = torch.empty((_NE_OUT,), dtype=torch.float32, device=dev)
+    p = _build.ptr
+    err = _lib().ifl_normal_equations(
+        p(p_w), p(n_t), p(q_w), p(mask), p_w.shape[0], huber_delta, p(partials),
+        GN_BLOCKS, p(out), _build.stream_handle(),
+    )
+    _build.check(err, "normal_equations")
+    normal_equations.launches += 1
+    return out[:36].view(6, 6), out[36:42], out[42], out[43]
+
+
+normal_equations.launches = 0
+
+
+def rgb_normal_equations_ref(p_w, T_pred_cw, fx: float, fy: float, i_src, i_t,
+                             gx_t, gy_t, gate):
+    """Plain photometric sums at world points p_w (N, 3), the photometric
+    half of K3: residual I_t - I_src against targets gathered at
+    association time, J = [g, p_w x g] with g = dI/dp_w through the
+    projection of the prediction view (T_pred_cw, fx, fy of the level),
+    gated by ``gate`` (f32 0/1) and a positive prediction-camera depth.
+
+    Returns (H 6x6, b 6, sum of the gate, sum |r| over it).
+    """
+    p_c = p_w @ T_pred_cw[:3, :3].T + T_pred_cw[:3, 3]
+    zs = torch.clamp(p_c[:, 2], min=1e-6)
+    gpx = gx_t * fx / zs
+    gpy = gy_t * fy / zs
+    gpz = -(gpx * p_c[:, 0] + gpy * p_c[:, 1]) / zs
+    gw = torch.stack([gpx, gpy, gpz], dim=-1) @ T_pred_cw[:3, :3]
+    J = torch.cat([gw, torch.linalg.cross(p_w, gw)], dim=-1)
+    r = i_t - i_src
+    m = gate * (p_c[:, 2] > 0.0).float()
+    Jm = J * m[:, None]
+    H6 = Jm.T @ Jm
+    b6 = -(Jm.T @ (r * m)[:, None])[:, 0]
+    return H6, b6, torch.sum(m), torch.sum(torch.abs(r) * m)
+
+
+def _gn_steps_ref(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n, dist_thresh,
+                  angle_thresh, huber_delta, damping, min_valid, rgb=None,
+                  T_pred_cw=None, rgb_intr=None, rgb_weight=0.0):
+    """Plain K3 steps; returns (T, inliers, sum |r| w, wr) of the last step,
+    wr the photometric trust-fraction weight (0 without ``rgb``)."""
+    T = T_init
+    wr = torch.zeros((), dtype=torch.float32, device=src_v.device)
+    for _ in range(inner_n):
+        R, t = T[:3, :3], T[:3, 3]
+        p_w = src_v @ R.T + t
+        n_w = src_n @ R.T
+        dist = torch.linalg.norm(p_w - q_w, dim=-1)
+        n_dot = torch.sum(n_w * n_t, dim=-1)
+        mask = gate * ((dist < dist_thresh) & (n_dot > angle_thresh)).float()
+        H6, b6, nin, rsum = normal_equations_ref(p_w, n_t, q_w, mask, huber_delta)
+        if rgb is not None:
+            Hr, br, _, _ = rgb_normal_equations_ref(p_w, T_pred_cw, *rgb_intr, *rgb)
+            # Trust-fraction combine: the photometric JtJ scales with fx^2,
+            # so it joins at the share rgb_weight of the joint information.
+            wr = rgb_weight * torch.trace(H6) / torch.clamp(torch.trace(Hr), min=1e-20)
+            H6 = H6 + wr * Hr
+            b6 = b6 + wr * br
+        xi = solve_increment(H6, b6, damping)
+        xi = torch.where(nin >= min_valid, xi, torch.zeros_like(xi))
+        T = se3_exp(xi) @ T
+    return T, nin, rsum, wr
+
+
 def solve_increment(H6, b6, damping: float):
     """Damped 6x6 solve; a non-finite solution becomes the zero twist."""
     damp = damping * torch.clamp(torch.diagonal(H6), min=1.0)
@@ -113,58 +234,79 @@ def solve_increment(H6, b6, damping: float):
 
 def gn_iterations_ref(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
                       dist_thresh, angle_thresh, huber_delta, damping,
-                      min_valid):
+                      min_valid, rgb=None, T_pred_cw=None, rgb_intr=None,
+                      rgb_weight=0.0):
     """Plain K3: ``inner_n`` GN steps on fixed correspondences.
 
     The reference's ``ops/icp.track`` inner_body: gate by distance and
-    normal angle, reduce, damped solve, zero the step unless inliers >=
-    min_valid, and update the pose on the left by exp(xi).
-    Returns (T, inliers, sum |r| w) of the last step.
+    normal angle, reduce (``normal_equations_ref``), join the photometric
+    system at the trust fraction when ``rgb`` is given, damped solve, zero
+    the step unless inliers >= min_valid, and update the pose on the left
+    by exp(xi).  Returns (T, inliers, sum |r| w) of the last step.
     """
-    T = T_init
-    for _ in range(inner_n):
-        R, t = T[:3, :3], T[:3, 3]
-        p_w = src_v @ R.T + t
-        n_w = src_n @ R.T
-        dist = torch.linalg.norm(p_w - q_w, dim=-1)
-        n_dot = torch.sum(n_w * n_t, dim=-1)
-        mask = gate * ((dist < dist_thresh) & (n_dot > angle_thresh)).float()
-        H6, b6, nin, rsum = normal_equations(p_w, n_t, q_w, mask, huber_delta)
-        xi = solve_increment(H6, b6, damping)
-        xi = torch.where(nin >= min_valid, xi, torch.zeros_like(xi))
-        T = se3_exp(xi) @ T
-    return T, nin, rsum
+    return _gn_steps_ref(
+        src_v, src_n, q_w, n_t, gate, T_init, inner_n=inner_n,
+        dist_thresh=dist_thresh, angle_thresh=angle_thresh,
+        huber_delta=huber_delta, damping=damping, min_valid=min_valid, rgb=rgb,
+        T_pred_cw=T_pred_cw, rgb_intr=rgb_intr, rgb_weight=rgb_weight,
+    )[:3]
 
 
 def gn_iterations(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
-                  dist_thresh, angle_thresh, huber_delta, damping, min_valid):
+                  dist_thresh, angle_thresh, huber_delta, damping, min_valid,
+                  rgb=None, T_pred_cw=None, rgb_intr=None, rgb_weight=0.0):
     """``inner_n`` fixed-correspondence Gauss-Newton steps.
 
     src_v, src_n: f32[N, 3] source vertices/normals (camera frame);
     q_w, n_t: f32[N, 3] associated targets (world); gate: f32[N] 0/1;
-    T_init: f32[4, 4].  Returns (T f32[4, 4], inliers f32[], res_sum f32[]),
-    all on the device: on CUDA the pose stays in device memory throughout.
+    T_init: f32[4, 4].  The photometric term joins with ``rgb`` = (i_src,
+    i_t, gx_t, gy_t, rgb_gate), each f32[N], ``T_pred_cw`` f32[4, 4],
+    ``rgb_intr`` = (fx, fy) of the level and ``rgb_weight``; its
+    trust-fraction weight of the last step is left in
+    ``gn_iterations.last_wr`` (a device scalar).  Returns (T f32[4, 4],
+    inliers f32[], res_sum f32[]), all on the device: on CUDA the pose
+    stays in device memory throughout.
     """
     kw = dict(inner_n=inner_n, dist_thresh=dist_thresh,
               angle_thresh=angle_thresh, huber_delta=huber_delta,
               damping=damping, min_valid=min_valid)
+    rgb_kw = dict(rgb=rgb, T_pred_cw=T_pred_cw, rgb_intr=rgb_intr,
+                  rgb_weight=rgb_weight)
     if src_v.device.type == "cpu":
-        return gn_iterations_ref(src_v, src_n, q_w, n_t, gate, T_init, **kw)
-    _build.check_tensors(dict(src_v=src_v, src_n=src_n, q_w=q_w, n_t=n_t, gate=gate),
-                         src_v.device)
+        T, nin, rsum, wr = _gn_steps_ref(src_v, src_n, q_w, n_t, gate, T_init,
+                                         **kw, **rgb_kw)
+        if rgb is not None:
+            gn_iterations.last_wr = wr
+        return T, nin, rsum
     dev = src_v.device
+    tensors = dict(src_v=src_v, src_n=src_n, q_w=q_w, n_t=n_t, gate=gate)
+    if rgb is not None:
+        T_pred_cw = T_pred_cw.to(torch.float32).contiguous()
+        planes = dict(zip(("i_src", "i_t", "gx_t", "gy_t", "rgb_gate"), rgb))
+        planes["T_pred_cw"] = T_pred_cw
+        tensors.update(planes)
+    _check_f32(**tensors)
+    _build.check_tensors(tensors, dev)
     T = T_init.to(torch.float32).contiguous().clone()
-    partials = torch.empty((GN_BLOCKS, 32), dtype=torch.float32, device=dev)
-    stats = torch.zeros((2,), dtype=torch.float32, device=dev)
+    partials = torch.empty((GN_BLOCKS, _ROW), dtype=torch.float32, device=dev)
+    stats = torch.zeros((3,), dtype=torch.float32, device=dev)
     p = _build.ptr
+    rgb_ptrs = [p(x) for x in rgb] + [p(T_pred_cw)] if rgb is not None else [None] * 6
+    fx, fy = rgb_intr if rgb is not None else (0.0, 0.0)
     err = _lib().ifl_gn_iterations(
-        p(src_v), p(src_n), p(q_w), p(n_t), p(gate), src_v.shape[0], p(T),
-        p(partials), GN_BLOCKS, p(stats), inner_n, dist_thresh, angle_thresh,
-        huber_delta, damping, float(min_valid), _build.stream_handle(),
+        p(src_v), p(src_n), p(q_w), p(n_t), p(gate), *rgb_ptrs, src_v.shape[0],
+        p(T), p(partials), GN_BLOCKS, p(stats), inner_n, dist_thresh,
+        angle_thresh, huber_delta, damping, float(min_valid), fx, fy,
+        rgb_weight if rgb is not None else 0.0, _build.stream_handle(),
     )
     _build.check(err, "gn_iterations")
     gn_iterations.launches += 1
+    if rgb is not None:
+        gn_iterations.launches_rgb += 1
+        gn_iterations.last_wr = stats[2]
     return T, stats[0], stats[1]
 
 
 gn_iterations.launches = 0
+gn_iterations.launches_rgb = 0
+gn_iterations.last_wr = None

@@ -6,7 +6,7 @@ depth through a separable tent footprint, softmin-composited so nearer
 surfaces win (see ``csrc/raycast.cu``).  ``finish_splat_images`` turns the
 planes into a depth/validity/color prediction.  CUDA tensors launch the
 kernel; CPU tensors run ``splat_planes_ref``.  ``splat_planes.launches``
-counts kernel launches.
+counts kernel launches, ``splat_planes.launches_color`` those with color.
 """
 
 from __future__ import annotations
@@ -208,10 +208,12 @@ def splat_planes(slots, slot_valid, block_coords, sdf, weight, color, T_wc,
     )
     _build.check(err, "splat_planes")
     splat_planes.launches += 1
+    splat_planes.launches_color += int(with_color)
     return acc
 
 
 splat_planes.launches = 0
+splat_planes.launches_color = 0
 
 
 def splat_depth(slots, slot_valid, block_coords, sdf, weight, color, T_wc,

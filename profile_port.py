@@ -21,7 +21,12 @@ on the synthetic orbit, after 3 warm-up frames:
    refinement, predicted-id sampling, merges, association and the label
    vote: touched list + K7), then part 2 for ``slam.step_seg``, and the
    head alone (forward, forward with float64 GroupNorm statistics for
-   comparison, grouping, the whole ``segment`` call).
+   comparison, grouping, the whole ``segment`` call);
+4. the photometric path (chip_smoke.py's: ``rgb_weight`` 0.1, the drift
+   sentinel and the stamps, on textured frames): N frames of ``slam.step``
+   untraced, the stages of part 1 (the intensities inside preprocess, the
+   photometric ICP, the splat with color) plus the stamps and the sentinel
+   as stages of their own, and part 2.
 
 Prints a table per part, the card's name and power limit, and as its last
 line one JSON object with every number.
@@ -35,12 +40,14 @@ import time
 
 import torch
 
-from chip_smoke import bench_config, card_line, instance_config
+from chip_smoke import bench_config, card_line, instance_config, rgb_config
 
 
 def stages(cfg, state, frame):
     """One frame through slam.step's stages, timed one by one (ms); returns
-    (times, the state after the frame)."""
+    (times, the state after the frame).  With the photometric term the
+    intensities are made in the preprocess stage and the splat predicts
+    color; with stamps or the sentinel each is a stage of its own."""
     from instancefusion_tpu_torch.engine import slam
     from instancefusion_tpu_torch.ops import blocks, icp, preprocess
     from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
@@ -55,14 +62,21 @@ def stages(cfg, state, frame):
         out[name] = (time.perf_counter() - t0) * 1e3
         return result
 
+    rgb = cfg.use_color and cfg.icp.rgb_weight > 0.0
     # K1 alone first; the preprocess stage (the whole pyramid) runs it again.
     timed("k1", lambda: kpre.fused_preprocess(frame.depth, intr, cfg.preprocess))
-    pyr = timed("preprocess", lambda: preprocess.build_frame_pyramid(
-        frame.depth, intr, cfg.preprocess, cfg.icp.levels))
+
+    def prep():
+        i = preprocess.rgb_to_intensity(frame.color) if rgb else None
+        pred_i = preprocess.rgb_to_intensity(state.pred.color) if rgb else None
+        return preprocess.build_frame_pyramid(frame.depth, intr, cfg.preprocess,
+                                              cfg.icp.levels, i), pred_i
+
+    pyr, pred_i = timed("preprocess", prep)
     res = timed("icp", lambda: icp.track(
         pyr, state.pred.vertex_w, state.pred.normal_w, state.pred.valid,
         slam._motion_seed(state.T_wc, state.T_prev_wc, cfg.icp.vel_seed),
-        state.pred_T_wc, intr, cfg.icp))
+        state.pred_T_wc, intr, cfg.icp, pred_intensity=pred_i))
     T = res.T_wc
     d0 = pyr[0]["depth"]
     vol = timed("allocate", lambda: blocks.discover_allocate(
@@ -75,11 +89,19 @@ def stages(cfg, state, frame):
         vol, slots, valid, d0, frame.color if on else None, T, intr, cfg.tsdf,
         color_gain=float(cfg.color_every) if on else 1.0))
     pred = timed("splat_predict", lambda: blocks.raycast_splat(
-        vol, T, intr, cfg.tsdf, slots, valid, with_color=False,
+        vol, T, intr, cfg.tsdf, slots, valid, with_color=rgb or cfg.raycast.predict_color,
         depth_prior=d0, rmax=cfg.raycast.splat_rmax))
+    extra = {}
+    if cfg.track_stamps:
+        extra["stamp"] = timed("stamps", lambda: slam._update_stamps(
+            cfg, state.stamp, vol, state.volume.n_active, T, res.valid, state.frame_idx))
+    if cfg.consistency_check:
+        cur, ewma, _, _ = timed("sentinel", lambda: slam._consistency_update(
+            cfg, state, pyr, res, T))
+        extra.update(prev_coarse=cur, drift_ewma=ewma)
     return out, state._replace(
         T_wc=T, volume=vol, pred=pred, pred_T_wc=T, T_prev_wc=state.T_wc,
-        frame_idx=state.frame_idx + 1, frame_count=state.frame_count + 1)
+        frame_idx=state.frame_idx + 1, frame_count=state.frame_count + 1, **extra)
 
 
 def instance_stages(cfg, state, frame, head):
@@ -180,6 +202,30 @@ def device_profile(step_fn, state, frames):
     }
 
 
+def path_profile(cfg, T0, frames, warm, n):
+    """Parts 0-2 for one configuration of ``slam.step`` over `frames` (warm
+    + 3n): untraced ms/frame, median stage ms, and the device profile."""
+    from instancefusion_tpu_torch.engine import slam
+
+    state = slam.init_state(cfg, T0)
+    for f in frames[:warm]:
+        state, _ = slam.step(cfg, state, f.depth, f.color)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in frames[warm:warm + n]:
+        state, _ = slam.step(cfg, state, f.depth, f.color)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n
+    per_stage = []
+    for f in frames[warm + n:warm + 2 * n]:
+        times, state = stages(cfg, state, f)
+        per_stage.append(times)
+    stage_ms = {k: sorted(s[k] for s in per_stage)[n // 2] for k in per_stage[0]}
+    _, dev = device_profile(lambda st, f: slam.step(cfg, st, f.depth, f.color)[0], state,
+                            frames[warm + 2 * n:])
+    return step_ms, stage_ms, dev
+
+
 def report_profile(name, prof, n):
     print(f"traced {name}: {n} frames at {prof['window_ms_per_frame']!r} ms/frame, "
           f"device busy {prof['device_busy_share']!r} of the window, "
@@ -204,30 +250,8 @@ def main() -> None:
     poses = synthetic.orbit_trajectory(warm + 3 * n)
     frames = [synthetic.render_frame(poses[i], cfg.intrinsics)
               for i in range(warm + 3 * n)]
-    state = slam.init_state(cfg, poses[0])
-    for f in frames[:warm]:
-        state, _ = slam.step(cfg, state, f.depth, f.color)
-
-    # 0. untraced steps, one synchronize at the end.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in frames[warm:warm + n]:
-        state, _ = slam.step(cfg, state, f.depth, f.color)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / n
-
-    # 1. per-stage wall times, each stage synchronized.
-    per_stage = []
-    for f in frames[warm + n:warm + 2 * n]:
-        times, state = stages(cfg, state, f)
-        per_stage.append(times)
-    names = list(per_stage[0])
-    stage_ms = {k: sorted(s[k] for s in per_stage)[n // 2] for k in names}
-
-    # 2. device time by kernel over n unsynchronized steps.
-    state, main_dev = device_profile(
-        lambda st, f: slam.step(cfg, st, f.depth, f.color)[0], state,
-        frames[warm + 2 * n:])
+    # 0-2. untraced steps, stages, device profile.
+    step_ms, stage_ms, main_dev = path_profile(cfg, poses[0], frames, warm, n)
     print(f"untraced slam.step: {step_ms!r} ms/frame over {n} frames")
     print(f"stages (median of {n} frames, each synchronized, ms): "
           + ", ".join(f"{k} {v!r}" for k, v in stage_ms.items())
@@ -269,11 +293,23 @@ def main() -> None:
     print("head at 640x480 (ms per call, CUDA events over 20 calls): "
           + ", ".join(f"{k} {v!r}" for k, v in head_ms.items()))
     report_profile("slam.step_seg", inst_dev, n)
+    # 4. the photometric path, with the sentinel and the stamps.
+    rcfg = rgb_config()
+    tex = [synthetic.render_frame(poses[i], cfg.intrinsics, texture=True)
+           for i in range(warm + 3 * n)]
+    rgb_step_ms, rgb_stage_ms, rgb_dev = path_profile(rcfg, poses[0], tex, warm, n)
+    print(f"untraced slam.step, photometric path (rgb_weight {rcfg.icp.rgb_weight}, "
+          f"sentinel, stamps): {rgb_step_ms!r} ms/frame over {n} frames")
+    print(f"photometric stages (median of {n} frames, each synchronized, ms): "
+          + ", ".join(f"{k} {v!r}" for k, v in rgb_stage_ms.items())
+          + f"; sum without k1 {sum(v for k, v in rgb_stage_ms.items() if k != 'k1')!r}")
+    report_profile("slam.step (photometric)", rgb_dev, n)
     print(card)
     print(json.dumps({
         "card": card, "frames": n, "step_ms": step_ms, "stage_ms": stage_ms,
         "step_seg_ms": seg_step_ms, "instance_stage_ms": inst_ms, "head_ms": head_ms,
         "step_profile": main_dev, "step_seg_profile": inst_dev,
+        "rgb_step_ms": rgb_step_ms, "rgb_stage_ms": rgb_stage_ms, "rgb_step_profile": rgb_dev,
     }))
 
 

@@ -18,7 +18,7 @@ from instancefusion_tpu_torch.engine import slam
 from instancefusion_tpu_torch.geometry import camera as pcam
 from instancefusion_tpu_torch.ops import icp
 from instancefusion_tpu_torch.utils import ate as pate
-from tests.torch_helpers import to_port
+from tests.torch_helpers import blocks_cfg, to_port
 
 REPO = Path(__file__).resolve().parents[1]
 CLASSES = ["IcpConfig", "TsdfConfig", "RaycastConfig", "PreprocessConfig",
@@ -98,14 +98,19 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
+    """The dense map and sharded maps are not ported: they raise.  The
+    photometric term, the stamps and the sentinel run (test_torch_slam.py)."""
     cfg = to_port(jcfg.config2_tum_fr3_long_office())
     for change in (dict(map_kind="dense"), dict(map_kind="dense", use_instances=True),
-                   dict(track_stamps=True), dict(consistency_check=True)):
+                   dict(num_shards=2), dict(num_shards=4, track_stamps=True)):
         with pytest.raises(NotImplementedError):
             slam.init_state(dataclasses.replace(cfg, **change), device="cpu")
-    with pytest.raises(NotImplementedError):
-        icp.track([], None, None, None, None, torch.eye(4), cfg.intrinsics,
-                  dataclasses.replace(cfg.icp, rgb_weight=0.1))
+    small = to_port(blocks_cfg())
+    ported = dataclasses.replace(small, track_stamps=True, consistency_check=True,
+                                 icp=dataclasses.replace(small.icp, rgb_weight=0.1))
+    state = slam.init_state(ported, device="cpu")
+    assert state.stamp.shape == (small.tsdf.table_capacity, 2)
+    assert state.drift_ewma.shape == (3,) and len(state.prev_coarse) == 3
 
 
 def test_association_rounds_per_frame():

@@ -136,3 +136,187 @@ def test_gn_plain_runs_on_cpu(scene):
     T, nin, _ = kicp.gn_iterations(*args, **GN_KW)
     assert kicp.gn_iterations.launches == before
     assert float(nin) >= 60 and torch.isfinite(T).all()
+
+
+# ------------------------------------------------------ the photometric term
+
+ICP1_RGB = IcpConfig(iters=(6,), levels=1, assoc_every=2, min_valid=60, rgb_weight=0.1)
+
+
+@pytest.fixture(scope="module")
+def rgb_scene():
+    """The scene of `scene` rendered with texture: target maps and
+    intensity (with its gradients) of pose 0, source level 0 with its
+    intensity at pose 1."""
+    poses = jsyn.orbit_trajectory(30)
+    cfg = PreprocessConfig()
+    out = {"T0": np.asarray(poses[0])}
+    for key, i in (("t", 0), ("s", 1)):
+        f = jsyn.render_frame(poses[i], SMALL_INTR, texture=True)
+        lvl = jpp.build_frame_pyramid(f.depth, SMALL_INTR, cfg, 1)[0]
+        out.update({f"{key}v": lvl["vmap"], f"{key}n": lvl["nmap"],
+                    f"{key}val": lvl["valid"], f"{key}i": jpp.rgb_to_intensity(f.color)})
+    out["tv"] = jse3.transform_points(poses[0], out["tv"])
+    out["tn"] = jse3.rotate_vectors(poses[0], out["tn"])
+    out["tgx"], out["tgy"] = jicp.intensity_gradients(out["ti"])
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def test_intensity_gradients_match_reference():
+    img = np.random.default_rng(3).uniform(0, 1, (37, 53)).astype(np.float32)
+    ref = jicp.intensity_gradients(jnp.asarray(img))
+    out = picp.intensity_gradients(t(img))
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(n(a), np.asarray(b))
+    assert (n(out[0])[0] == 0).all() and (n(out[1])[:, -1] == 0).all()
+
+
+def test_associate_rgb_matches_jnp_branch(rgb_scene):
+    """The rgb planes are gathered at the geometric target pixel: equal to
+    the jnp branch wherever both pick the same target pixel (all but the
+    <= 0.1% projections onto a .5 boundary of test_associate_matches_reference)."""
+    s = rgb_scene
+    T_est = _perturbed(s["T0"], seed=4)
+    T_cw = np.asarray(jse3.se3_inverse(s["T0"]))
+    planes = (s["ti"], s["tgx"], s["tgy"])
+    ref = jicp.associate(s["sv"], s["sval"], s["tv"], s["tn"], s["tval"], T_est, T_cw,
+                         SMALL_INTR, IcpConfig(), tgt_rgb=planes)
+    out = picp.associate(t(s["sv"]), t(s["sval"]), t(s["tv"]), t(s["tn"]), t(s["tval"]),
+                         t(T_est), t(T_cw), to_port(SMALL_INTR),
+                         tgt_rgb=tuple(t(p) for p in planes))
+    assert len(out) == 4 and len(out[3]) == 4
+    ok_r, ok = np.asarray(ref[2]), n(out[2])
+    np.testing.assert_array_equal(n(out[3][3]), ok)
+    same = (ok & ok_r & (n(out[0]) == np.asarray(ref[0])).all(-1)
+            & (n(out[1]) == np.asarray(ref[1])).all(-1))
+    assert same.sum() > 5000 and (ok != ok_r).sum() <= 1e-3 * ok.size
+    for a, b in zip(out[3][:3], ref[3][:3]):
+        np.testing.assert_array_equal(n(a)[same], np.asarray(b)[same])
+    # The plain gather returns the target planes at exactly its own pixels.
+    u, v, sel = picp.association_inputs(t(s["sv"]), t(s["sval"]), t(T_est), t(T_cw),
+                                        to_port(SMALL_INTR))
+    *_, rgb = kicp.gather_target_maps_ref(u, v, sel, t(s["tv"]), t(s["tn"]),
+                                          t(s["tval"]), tuple(t(p) for p in planes))
+    h, w = s["ti"].shape
+    flat = (np.clip(np.ceil(n(v) - 0.5), 0, h - 1) * w
+            + np.clip(np.ceil(n(u) - 0.5), 0, w - 1)).astype(np.int64)
+    for a, p in zip(rgb, planes):
+        np.testing.assert_array_equal(n(a), p.reshape(-1)[flat])
+
+
+def test_reduce_rgb_matches_reference(rgb_scene):
+    s = rgb_scene
+    T_est = _perturbed(s["T0"], seed=5)
+    T_cw = np.asarray(jse3.se3_inverse(s["T0"]))
+    *_, (i_t, gx_t, gy_t, ok) = jicp.associate(
+        s["sv"], s["sval"], s["tv"], s["tn"], s["tval"], T_est, T_cw, SMALL_INTR,
+        IcpConfig(), tgt_rgb=(s["ti"], s["tgx"], s["tgy"]))
+    ref = jicp.reduce_rgb_equations(s["sv"], s["si"], i_t, gx_t, gy_t, ok, T_est, T_cw,
+                                    SMALL_INTR)
+    out = picp.reduce_rgb_equations(t(s["sv"]), t(s["si"]), t(i_t), t(gx_t), t(gy_t),
+                                    t(ok), t(T_est), t(T_cw), to_port(SMALL_INTR))
+    assert float(ref[2]) > 5000 and float(np.abs(np.asarray(ref[1])).max()) > 1.0
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(n(a), np.asarray(b), rtol=2e-4, atol=1e-3)
+
+
+def test_gn_rgb_plain_matches_pallas():
+    """Plain K3 with the photometric term against the reference's fused GN
+    kernel in interpret mode, on tests/test_pallas.py's construction (made
+    with numpy here): pose atol 5e-5, as that test holds the kernel."""
+    from instancefusion_tpu.ops.pallas.icp import gn_iterations as pallas_gn
+
+    rng = np.random.default_rng(4)
+    n_pts = 4096
+    q = rng.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+    q[:, 2] += 3.0
+    nrm = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    T_true = np.asarray(jse3.se3_exp(jnp.array([0.02, -0.01, 0.03, 0.01, -0.02, 0.015])))
+    R, tt = T_true[:3, :3], T_true[:3, 3]
+    v = ((q - tt) @ R).astype(np.float32)
+    nm = (nrm @ R).astype(np.float32)
+    T_pred_cw = np.asarray(jse3.se3_exp(jnp.array([0.05, 0.02, -0.04, 0.03, 0.01, -0.02])))
+    i_src = rng.uniform(0, 1, n_pts).astype(np.float32)
+    rgb = (i_src, (i_src + 0.05 * rng.normal(size=n_pts)).astype(np.float32),
+           (0.1 * rng.normal(size=n_pts)).astype(np.float32),
+           (0.1 * rng.normal(size=n_pts)).astype(np.float32), np.ones(n_pts, np.float32))
+    cfg = IcpConfig(huber_delta=0.02, rgb_weight=0.3)
+    kw = dict(inner_n=3, dist_thresh=cfg.dist_thresh, angle_thresh=cfg.angle_thresh,
+              huber_delta=cfg.huber_delta, damping=cfg.damping, min_valid=cfg.min_valid)
+    gate, eye = np.ones(n_pts, np.float32), np.eye(4, dtype=np.float32)
+    T_ref, nin_ref, _ = pallas_gn(v, nm, q, nrm, gate, eye, **kw, rgb=rgb,
+                                  T_pred_cw=T_pred_cw, rgb_intr=(200.0, 210.0),
+                                  rgb_weight=cfg.rgb_weight, interpret=True)
+    args = [t(x) for x in (v, nm, q, nrm, gate, eye)]
+    rgb_kw = dict(rgb=tuple(t(x) for x in rgb), T_pred_cw=t(T_pred_cw),
+                  rgb_intr=(200.0, 210.0), rgb_weight=cfg.rgb_weight)
+    T, nin, _ = kicp.gn_iterations_ref(*args, **kw, **rgb_kw)
+    np.testing.assert_allclose(n(T), np.asarray(T_ref), atol=5e-5)
+    assert abs(float(nin) - float(nin_ref)) < 1
+    # The wrapper runs the same plain steps on the CPU and leaves the
+    # trust-fraction weight, which is non-zero.
+    T_w, _, _ = kicp.gn_iterations(*args, **kw, **rgb_kw)
+    assert torch.equal(T_w, T) and float(kicp.gn_iterations.last_wr) > 0.0
+    # Without the term the pose is a different one.
+    T_geo, _, _ = kicp.gn_iterations_ref(*args, **kw)
+    assert np.abs(n(T_geo) - n(T)).max() > 1e-4
+
+
+@pytest.mark.parametrize("huber_delta", [0.0, 0.005])
+def test_normal_equations_plain_matches_pallas(huber_delta):
+    """Plain K6 against the reference's reduction kernel in interpret mode on
+    tests/test_pallas.py's inputs: rtol/atol 2e-3 (the sums are taken in
+    another order), inliers within 1, residual sum rtol 1e-3."""
+    from instancefusion_tpu.ops.pallas.icp import reduce_normal_equations
+
+    rng = np.random.default_rng(0)
+    n_pts = 10_000
+    p = rng.normal(0, 1, (n_pts, 3)).astype(np.float32)
+    nt = rng.normal(0, 1, (n_pts, 3)).astype(np.float32)
+    nt = nt / np.linalg.norm(nt, axis=-1, keepdims=True)
+    q = p + rng.normal(0, 0.01, (n_pts, 3)).astype(np.float32)
+    m = (rng.random(n_pts) > 0.3).astype(np.float32)
+    ref = reduce_normal_equations(p, nt, q, m, huber_delta, True)
+    before = kicp.normal_equations.launches
+    out = kicp.normal_equations(t(p), t(nt), t(q), t(m), huber_delta)
+    assert kicp.normal_equations.launches == before  # plain on the CPU
+    for a, b in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(n(a), np.asarray(b), rtol=2e-3, atol=2e-3)
+    assert abs(float(out[2]) - float(ref[2])) < 1.0
+    np.testing.assert_allclose(float(out[3]), float(ref[3]), rtol=1e-3)
+
+
+def test_build_normal_equations_matches_reference(scene):
+    """Associate + reduce in one call.  The association moves <= 0.1% of
+    the pixels (a .5 boundary rounded the other way, see
+    test_associate_matches_reference), so the sums are held at K6's own
+    tolerance, rtol/atol 2e-3, and the inliers within 0.1%."""
+    s = scene
+    T_est = _perturbed(s["T0"], seed=6)
+    T_cw = np.asarray(jse3.se3_inverse(s["T0"]))
+    cfg = IcpConfig(huber_delta=0.02)
+    ref = jicp.build_normal_equations(s["sv"], s["sn"], s["sval"], s["tv"], s["tn"],
+                                      s["tval"], T_est, T_cw, SMALL_INTR, cfg)
+    out = picp.build_normal_equations(t(s["sv"]), t(s["sn"]), t(s["sval"]), t(s["tv"]),
+                                      t(s["tn"]), t(s["tval"]), t(T_est), t(T_cw),
+                                      to_port(SMALL_INTR), to_port(cfg))
+    for a, b in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(n(a), np.asarray(b), rtol=2e-3, atol=2e-3)
+    assert abs(float(out[2]) - float(ref[2])) <= 1e-3 * float(ref[2])
+    np.testing.assert_allclose(float(out[3]), float(ref[3]), rtol=2e-3)
+
+
+def test_track_rgb_one_level_matches_reference(rgb_scene):
+    """`track` with rgb_weight 0.1 on textured frames: pose atol 5e-5, as
+    the geometric track."""
+    s = rgb_scene
+    src = dict(vmap=s["sv"], nmap=s["sn"], valid=s["sval"], intensity=s["si"])
+    ref = jicp.track([src], s["tv"], s["tn"], s["tval"], s["T0"], s["T0"], SMALL_INTR,
+                     ICP1_RGB, pred_intensity=s["ti"])
+    out = picp.track([{k: t(x) for k, x in src.items()}], t(s["tv"]), t(s["tn"]),
+                     t(s["tval"]), t(s["T0"]), t(s["T0"]), to_port(SMALL_INTR),
+                     to_port(ICP1_RGB), pred_intensity=t(s["ti"]))
+    assert bool(ref.valid) and bool(out.valid)
+    np.testing.assert_allclose(n(out.T_wc), np.asarray(ref.T_wc), atol=5e-5)
+    np.testing.assert_allclose(float(out.inliers), float(ref.inliers), rtol=1e-3)
+    assert float(kicp.gn_iterations.last_wr) > 0.0

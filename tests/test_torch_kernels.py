@@ -8,6 +8,8 @@ is left out there):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -69,7 +71,7 @@ def test_main_path_launches_every_kernel(run):
     _, _, launches = run
     rounds = sum(icp.level_schedule(CFG.icp, lvl)[1] for lvl in range(CFG.icp.levels))
     assert launches == {"K1": 4, "K2": 4 * rounds, "K3": 4 * rounds, "K4": 4,
-                        "K5": 4, "K7": 2}
+                        "K5": 4, "K6": 0, "K7": 2}
 
 
 def _level0(state, frame):
@@ -216,3 +218,138 @@ def test_step_makes_no_host_sync(run, with_seg):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(info.track_ok)
+
+
+# The photometric term, the sentinel and the stamps on the same geometry.
+CFG_RGB = dataclasses.replace(
+    CFG, use_instances=False, icp=dataclasses.replace(CFG.icp, rgb_weight=0.1),
+    consistency_check=True, track_stamps=True)
+
+
+@pytest.fixture(scope="module")
+def rgb_run():
+    """Four photometric frames on the card (textured), and the next frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only on the GPU")
+    poses = synthetic.orbit_trajectory(12)
+    frames = [synthetic.render_frame(poses[i], CFG.intrinsics, texture=True)
+              for i in range(5)]
+    kernels.reset_launches()
+    state = slam.init_state(CFG_RGB, poses[0])
+    for f in frames[:4]:
+        state, info = slam.step(CFG_RGB, state, f.depth, f.color)
+        assert bool(info.track_ok) and not bool(info.drift_alarm)
+    launches = {k: (fn.launches, getattr(fn, "launches_rgb", None))
+                for k, fn in kernels.wrappers().items()}
+    return state, frames[4], launches
+
+
+def _rgb_inputs(state, frame):
+    """Level-0 source maps and intensity of `frame`, its association (with
+    the photometric planes) against the state's prediction, and the GN
+    arguments."""
+    pyr = preprocess.build_frame_pyramid(frame.depth, CFG.intrinsics, CFG.preprocess, 1,
+                                         preprocess.rgb_to_intensity(frame.color))
+    src = pyr[0]
+    ti = preprocess.rgb_to_intensity(state.pred.color).contiguous()
+    planes = (ti, *icp.intensity_gradients(ti))
+    T_cw = se3_inverse(state.pred_T_wc)
+    u, v, sel = icp.association_inputs(src["vmap"], src["valid"], state.T_wc, T_cw,
+                                       CFG.intrinsics)
+    tg = [x.contiguous() for x in (state.pred.vertex_w, state.pred.normal_w, state.pred.valid)]
+    return src, planes, T_cw, (u, v, sel, *tg)
+
+
+def test_rgb_path_launches(rgb_run):
+    """Per frame: K2 and K3 once per association round with the planes,
+    plus 3 geometric rounds of the sentinel; K5 with color; no K6."""
+    _, _, launches = rgb_run
+    rounds = sum(icp.level_schedule(CFG.icp, lvl)[1] for lvl in range(CFG.icp.levels))
+    assert launches["K2"] == launches["K3"] == (4 * (rounds + 3), 4 * rounds)
+    assert launches["K1"][0] == launches["K4"][0] == launches["K5"][0] == 4
+    assert launches["K6"][0] == 0
+
+
+def test_gather_rgb_kernel_matches_plain(rgb_run):
+    state, frame, _ = rgb_run
+    _, planes, _, gargs = _rgb_inputs(state, frame)
+    before = kicp.gather_target_maps.launches_rgb
+    out = kicp.gather_target_maps(*gargs, planes)
+    ref = kicp.gather_target_maps_ref(*gargs, planes)
+    assert kicp.gather_target_maps.launches_rgb == before + 1
+    assert int(out[2].sum()) > 5000
+    for a, b in zip(out[:3] + out[3], ref[:3] + ref[3]):
+        assert torch.equal(a, b)  # bit-identical gather
+
+
+def test_gn_rgb_kernel_matches_plain(rgb_run):
+    """Pose within 5e-5 of the plain steps and inliers within 1e-3; the
+    trust-fraction weight agrees and is non-zero."""
+    state, frame, _ = rgb_run
+    src, planes, T_cw, gargs = _rgb_inputs(state, frame)
+    q, n_t, ok, (i_t, gx_t, gy_t) = kicp.gather_target_maps(*gargs, planes)
+    args = (src["vmap"].reshape(-1, 3).contiguous(), src["nmap"].reshape(-1, 3).contiguous(),
+            q, n_t, (src["valid"].reshape(-1) & ok).float(), state.T_wc)
+    kw = dict(inner_n=4, dist_thresh=0.1, angle_thresh=0.34, huber_delta=0.0,
+              damping=1e-6, min_valid=60,
+              rgb=(src["intensity"].reshape(-1).contiguous(), i_t, gx_t, gy_t, ok.float()),
+              T_pred_cw=T_cw, rgb_intr=(CFG.intrinsics.fx, CFG.intrinsics.fy),
+              rgb_weight=0.1)
+    T_k, nin_k, _ = kicp.gn_iterations(*args, **kw)
+    wr_k = float(kicp.gn_iterations.last_wr)
+    T_r, nin_r, _ = kicp.gn_iterations_ref(*args, **kw)
+    assert (T_k - T_r).abs().max().item() < 5e-5
+    assert abs(float(nin_k) - float(nin_r)) <= 1e-3 * float(nin_r)
+    assert wr_k > 0.0
+
+
+@pytest.mark.parametrize("huber_delta", [0.0, 0.02])
+def test_normal_equations_kernel_matches_plain(rgb_run, huber_delta):
+    """H and b within rtol/atol 2e-3 (another summation order), inliers
+    exact, residual sum within rtol 1e-3."""
+    state, frame, _ = rgb_run
+    src, _, _, gargs = _rgb_inputs(state, frame)
+    q, n_t, ok = kicp.gather_target_maps(*gargs)
+    p_w = (src["vmap"].reshape(-1, 3) @ state.T_wc[:3, :3].T + state.T_wc[:3, 3]).contiguous()
+    mask = (src["valid"].reshape(-1) & ok & ((p_w - q).norm(dim=-1) < 0.1)).float()
+    before = kicp.normal_equations.launches
+    out = kicp.normal_equations(p_w, n_t, q, mask, huber_delta)
+    ref = kicp.normal_equations_ref(p_w, n_t, q, mask, huber_delta)
+    assert kicp.normal_equations.launches == before + 1
+    assert float(ref[2]) > 5000
+    for a, b in zip(out[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+    assert float(out[2]) == float(ref[2])
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-3, atol=0.0)
+
+
+def test_plain_versions_launch_nothing(rgb_run):
+    """The *_ref functions stay plain on CUDA tensors: no count moves."""
+    state, frame, _ = rgb_run
+    src, planes, T_cw, gargs = _rgb_inputs(state, frame)
+    counts = {k: fn.launches for k, fn in kernels.wrappers().items()}
+    q, n_t, ok, (i_t, gx_t, gy_t) = kicp.gather_target_maps_ref(*gargs, planes)
+    kicp.gn_iterations_ref(
+        src["vmap"].reshape(-1, 3), src["nmap"].reshape(-1, 3), q, n_t, ok.float(),
+        state.T_wc, inner_n=2, dist_thresh=0.1, angle_thresh=0.34, huber_delta=0.0,
+        damping=1e-6, min_valid=60,
+        rgb=(src["intensity"].reshape(-1), i_t, gx_t, gy_t, ok.float()),
+        T_pred_cw=T_cw, rgb_intr=(CFG.intrinsics.fx, CFG.intrinsics.fy), rgb_weight=0.1)
+    kicp.normal_equations_ref(q, n_t, q, ok.float(), 0.0)
+    torch.cuda.synchronize()
+    assert counts == {k: fn.launches for k, fn in kernels.wrappers().items()}
+
+
+def test_rgb_step_makes_no_host_sync(rgb_run):
+    """The photometric term, the sentinel and the stamps stay on the device."""
+    state, frame, _ = rgb_run
+    vol = state.volume
+    state = state._replace(volume=vol._replace(
+        sdf=vol.sdf.clone(), weight=vol.weight.clone(), color=vol.color.clone()))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, info = slam.step(CFG_RGB, state, frame.depth, frame.color)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(info.track_ok) and not bool(info.drift_alarm)
+    assert int(state.stamp[:, 0].max()) == int(state.frame_idx)

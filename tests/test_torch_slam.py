@@ -1,6 +1,7 @@
 """The slice as a whole: the port's `slam.step` and `slam.step_seg` against
 the reference's on the CPU, a state carried across mid-sequence, and the
-port's own accuracy."""
+port's own accuracy (the photometric term, the drift sentinel and the
+stamps: tests/test_torch_slam_rgb.py)."""
 
 import dataclasses
 
@@ -19,25 +20,15 @@ from instancefusion_tpu_torch.engine import slam as pslam
 from instancefusion_tpu_torch.models.segmentation import Segmentation as PSeg
 from instancefusion_tpu_torch.utils.ate import ate_rmse
 from tests.helpers import SMALL_INTR
-from tests.torch_helpers import blocks_cfg, gt_segmentation, n, t, to_port
+from tests.torch_helpers import (
+    blocks_cfg, gt_segmentation, n, pose_error, reference_state_arrays, t, to_port,
+)
 
 # Color every 2nd frame: the 4-frame comparison covers both cadence branches.
 JCFG = dataclasses.replace(blocks_cfg(), color_every=2)
 PCFG = to_port(JCFG)
 N_REF = 4
 POSE_TOL = 5e-4  # m of translation, rad of rotation
-
-
-def _arrays(state) -> dict:
-    """A reference SlamState as field-path numpy arrays (convert's keys)."""
-    state = jax.device_get(state)
-    out = {k: np.asarray(getattr(state, k))
-           for k in ("T_wc", "pred_T_wc", "frame_idx", "lost_frames", "T_prev_wc")}
-    for prefix in ("volume", "pred", "votes", "table"):
-        if getattr(state, prefix) is not None:
-            for name, v in getattr(state, prefix)._asdict().items():
-                out[f"{prefix}.{name}"] = np.asarray(v)
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -51,15 +42,9 @@ def reference():
     for f in frames[:N_REF]:
         state, _ = jslam.step(JCFG, state, f.depth, f.color)
         est.append(np.asarray(state.T_wc))
-        states.append(_arrays(state))
+        states.append(reference_state_arrays(state))
     frames_np = [(np.array(f.depth), np.array(f.color)) for f in frames]
     return dict(poses=np.array(poses), frames=frames_np, est=est, states=states)
-
-
-def _pose_error(a, b):
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    cos = np.clip((np.trace(a[:3, :3].T @ b[:3, :3]) - 1.0) / 2.0, -1.0, 1.0)
-    return np.abs(a[:3, 3] - b[:3, 3]).max(), np.arccos(cos)
 
 
 def test_steps_match_reference(reference):
@@ -67,7 +52,7 @@ def test_steps_match_reference(reference):
     for i, (d, c) in enumerate(reference["frames"][:N_REF]):
         state, info = pslam.step(PCFG, state, d, c)
         assert bool(info.track_ok)
-        dt, dr = _pose_error(n(state.T_wc), reference["est"][i])
+        dt, dr = pose_error(n(state.T_wc), reference["est"][i])
         assert dt < POSE_TOL and dr < POSE_TOL, (i, dt, dr)
 
 
@@ -79,7 +64,7 @@ def test_state_carried_across(reference):
     assert state.frame_count == 3
     state, info = pslam.step(PCFG, state, *reference["frames"][3])
     assert bool(info.track_ok)
-    dt, dr = _pose_error(n(state.T_wc), reference["est"][3])
+    dt, dr = pose_error(n(state.T_wc), reference["est"][3])
     assert dt < POSE_TOL and dr < POSE_TOL, (dt, dr)
     ref = reference["states"][3]
     out = convert.state_to_numpy(state)
@@ -172,7 +157,7 @@ def reference_seg():
         state, _ = jslam.step_seg(JCFG_SEG, state, f.depth, f.color,
                                   JSeg(*(jax.numpy.asarray(x) for x in seg)))
         est.append(np.asarray(state.T_wc))
-    return dict(poses=np.array(poses), segs=segs, est=est, state=_arrays(state),
+    return dict(poses=np.array(poses), segs=segs, est=est, state=reference_state_arrays(state),
                 frames=[(np.array(f.depth), np.array(f.color)) for f in frames])
 
 
@@ -184,7 +169,7 @@ def test_step_seg_matches_reference(reference_seg):
     for i, ((d, c), seg) in enumerate(zip(ref["frames"], ref["segs"])):
         state, info = pslam.step_seg(PCFG_SEG, state, d, c, PSeg(*(t(x) for x in seg)))
         assert bool(info.track_ok)
-        dt, dr = _pose_error(n(state.T_wc), ref["est"][i])
+        dt, dr = pose_error(n(state.T_wc), ref["est"][i])
         assert dt < POSE_TOL and dr < POSE_TOL, (i, dt, dr)
     out = convert.state_to_numpy(state)
     for name in ("active", "cls", "score", "age", "matches", "overflow"):
@@ -212,3 +197,4 @@ def test_state_round_trip_with_instances(reference_seg):
     for k, v in arrays.items():
         np.testing.assert_array_equal(back[k], v, err_msg=k)
         assert back[k].dtype == v.dtype, k
+

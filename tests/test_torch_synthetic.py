@@ -13,6 +13,15 @@ def test_orbit_trajectory_matches_reference():
                                np.asarray(jsyn.orbit_trajectory(9)), atol=1e-5)
 
 
+def test_handheld_trajectory_matches_reference():
+    """The deterministic shaken arc: equal to the reference's to fp32."""
+    out = n(psyn.handheld_trajectory(25, device="cpu"))
+    ref = np.asarray(jsyn.handheld_trajectory(25))
+    np.testing.assert_allclose(out, ref, atol=2e-6)
+    # It moves faster than the orbit: > 1 cm between some neighbouring poses.
+    assert np.linalg.norm(np.diff(out[:, :3, 3], axis=0), axis=-1).max() > 0.01
+
+
 def test_scene_sdf_matches_reference():
     p = np.random.default_rng(0).uniform(-1.3, 2.5, (500, 3)).astype(np.float32)
     s_ref, id_ref = jsyn.scene_sdf(p)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -68,3 +69,32 @@ def t(x) -> torch.Tensor:
 
 def n(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def reference_state_arrays(state) -> dict:
+    """A reference SlamState as field-path numpy arrays (the keys of the
+    port's ``convert.state_to_numpy``)."""
+    state = jax.device_get(state)
+    out = {k: np.asarray(getattr(state, k))
+           for k in ("T_wc", "pred_T_wc", "frame_idx", "lost_frames", "T_prev_wc")}
+    for prefix in ("volume", "pred", "votes", "table"):
+        if getattr(state, prefix) is not None:
+            for name, v in getattr(state, prefix)._asdict().items():
+                out[f"{prefix}.{name}"] = np.asarray(v)
+    for name in ("stamp", "drift_ewma"):
+        if getattr(state, name) is not None:
+            out[name] = np.asarray(getattr(state, name))
+    if state.prev_coarse is not None:
+        for i, v in enumerate(state.prev_coarse):
+            out[f"prev_coarse.{i}"] = np.asarray(v)
+    return out
+
+
+def pose_error(a, b):
+    """(largest translation difference in m, rotation angle in rad) between
+    two 4x4 poses.  The angle comes from the chord ||R_a - R_b||_F =
+    2 sqrt(2) sin(theta / 2), which keeps its precision near 0, where
+    arccos((trace - 1) / 2) turns fp32 rounding of ~1e-7 into ~5e-4 rad."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    chord = np.linalg.norm(a[:3, :3] - b[:3, :3]) / (2.0 * np.sqrt(2.0))
+    return np.abs(a[:3, 3] - b[:3, 3]).max(), 2.0 * np.arcsin(min(chord, 1.0))
