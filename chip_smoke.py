@@ -29,17 +29,28 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    them with the photometric planes; K5 with color), no sentinel alarm, a
    non-zero photometric weight, and stamps that end at the last frame with
    no revisit evidence;
-6. the local loop: that path's final state aged (every fused slot seen 200
-   frames ago, frame 300) and its pose drifted by a fixed twist; the last
-   frame's ``localloop.attempt`` must pull the pose back to the tracked one,
-   and ``reset_gaps`` must consume the evidence;
-7. each kernel against its plain PyTorch version, on inputs taken from the
+6. the march path: the bench configuration without splat prediction (the
+   touched-block integrate with K8, then the marched raycast with the depth
+   prior and screen-space normals) over the same 33 frames: tracking, ATE
+   below the voxel size and launch counts (K8 once a frame, K4 and K5
+   never), and the touched-block count of each frame against the list
+   length K;
+7. the dense path: config1 (TUM fr1 640x480, 128^3 dense volume of 25 mm
+   voxels) over the same 33 frames: tracking, ATE below the voxel size and
+   launch counts (K1 once and K2 and K3 19 times a frame, no other kernel),
+   with its peak memory;
+8. the local loop: the photometric path's final state aged (every fused
+   slot seen 200 frames ago, frame 300) and its pose drifted by a fixed
+   twist; the last frame's ``localloop.attempt`` must pull the pose back to
+   the tracked one, and ``reset_gaps`` must consume the evidence;
+9. each kernel against its plain PyTorch version, on inputs taken from the
    port's own state at those configurations, with times of the kernel, the
    plain version and, where one PyTorch call does the same work, that call
-   (K2 and K3 with the photometric planes, K5 with color and K6 among
-   them; no kernel may launch while a plain version is timed), and the
-   bound of K8, which is not ported;
-8. the packaged segmentation head at 640x480 on the card, held against the
+   (K2 and K3 with the photometric planes, K5 with color, K6, and K8 on the
+   march path's last state and the next frame's association, with and
+   without color, among them; no kernel may launch while a plain version is
+   timed);
+10. the packaged segmentation head at 640x480 on the card, held against the
    same head on the CPU: outputs, the grouping of the same outputs, and the
    whole segmentation on frames whose grouping does not hinge on tied
    heatmap peaks; then one ``step_seg`` on a head segmentation.
@@ -82,12 +93,21 @@ VOTE_FLOPS_PER_VOXEL = 40
 # Per-voxel fp32 operations of K8's running average: weights 4, sdf blend 5,
 # clamp 1, color denominator 3, three color blends of 4.
 TSDF_UPDATE_FLOPS_PER_VOXEL = 25
+# Bytes per voxel of a valid row that K8 must move: sdf and weight read and
+# written (16), psi and w_obs read (8), three color floats read and written
+# and three observations read (36).
+TSDF_UPDATE_BYTES_PER_VOXEL = 60
 WARMUP, TIMED, CHUNK = 3, 30, 6
 PER_FRAME = {"K1": 1, "K2": 9, "K3": 9, "K4": 1, "K5": 1}
 # The photometric path: 9 association rounds with the rgb planes and 3
 # geometric ones of the sentinel a frame; the splat predicts color.
 RGB_PER_FRAME = {"K1": 1, "K2": 12, "K3": 12, "K4": 1, "K5": 1,
                  "K2rgb": 9, "K3rgb": 9, "K5color": 1}
+# The march path: the touched-block integrate (K8) and the marched raycast.
+MARCH_PER_FRAME = {"K1": 1, "K2": 9, "K3": 9, "K8": 1}
+# The dense path (config1): ICP iters (10, 5, 4) with association every
+# step, 19 association rounds a frame; the dense map runs no kernel.
+DENSE_PER_FRAME = {"K1": 1, "K2": 19, "K3": 19}
 # The drift injected before the local loop, on the left of the tracked pose.
 DRIFT_XI = (0.02, -0.015, 0.01, 0.008, -0.006, 0.01)
 HEAD_FRAMES = 3
@@ -111,6 +131,7 @@ REPLACES = {
     "K6": "instancefusion_tpu/ops/pallas/icp.py:652 reduce_normal_equations",
     "K5color": "instancefusion_tpu/ops/pallas/raycast.py:319 splat_depth_groups "
                "(and :581 splat_depth), with_color",
+    "K8": "instancefusion_tpu/ops/pallas/tsdf.py:61 fused_tsdf_update",
 }
 SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
            "K2": "instancefusion_tpu_torch/csrc/icp.cu",
@@ -121,12 +142,13 @@ SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
            "K2rgb": "instancefusion_tpu_torch/csrc/icp.cu",
            "K3rgb": "instancefusion_tpu_torch/csrc/icp.cu",
            "K6": "instancefusion_tpu_torch/csrc/icp.cu",
-           "K5color": "instancefusion_tpu_torch/csrc/raycast.cu"}
+           "K5color": "instancefusion_tpu_torch/csrc/raycast.cu",
+           "K8": "instancefusion_tpu_torch/csrc/tsdf.cu"}
 NAMES = {"K1": "fused_preprocess", "K2": "gather_target_maps",
          "K3": "gn_iterations", "K4": "integrate", "K5": "splat_planes",
          "K7": "label_vote", "K2rgb": "gather_target_maps[rgb]",
          "K3rgb": "gn_iterations[rgb]", "K6": "normal_equations",
-         "K5color": "splat_planes[color]"}
+         "K5color": "splat_planes[color]", "K8": "tsdf_update"}
 
 
 def fail(msg: str) -> None:
@@ -184,6 +206,21 @@ def bench_config():
         preprocess=PreprocessConfig(use_pallas=True),
         map_kind="blocks", use_color=True, color_every=4,
     )
+
+
+def march_config():
+    """The bench configuration without splat prediction: the touched-block
+    integrate (K8) and the marched raycast, with the bench's depth prior and
+    screen-space normals."""
+    cfg = bench_config()
+    return dataclasses.replace(cfg, raycast=dataclasses.replace(cfg.raycast, use_splat=False))
+
+
+def dense_config():
+    """config1: TUM fr1 640x480, a 128^3 dense volume of 25 mm voxels."""
+    from instancefusion_tpu_torch.config import config1_tum_fr1_desk
+
+    return config1_tum_fr1_desk()
 
 
 def instance_config(num_classes: int):
@@ -491,7 +528,7 @@ def band_reads(coords, slots, valid, depth, T_wc, intr, tcfg):
     """Per voxel of the valid listed rows: camera depth z, pixel index,
     whether the pixel is in view, and the depth there (the projective
     association that K4 and K7 make)."""
-    from instancefusion_tpu_torch.ops.kernels.labels import project_voxels
+    from instancefusion_tpu_torch.ops.kernels.tsdf import project_voxels
 
     z, pix, seen = project_voxels(coords, slots[valid], T_wc, intr, tcfg)
     return z, pix, seen, depth.reshape(-1)[pix]
@@ -810,15 +847,74 @@ def rgb_kernel_phase(cfg, state, frame, last, launches):
     return recs
 
 
-def unported_bound(cfg) -> None:
-    """Print the bound of K8 (``fused_tsdf_update``, still to port; it
-    serves the dense map's touched-block integrate, on no path here) at the
-    bench shapes: the listed rows' sdf, weight and color read and written,
-    the same shapes of observations read."""
-    k, b3 = cfg.tsdf.touched_capacity, cfg.tsdf.block_size ** 3
-    b_ms, b_by = bound_ms(k * b3 * 5 * 4 * 3, TSDF_UPDATE_FLOPS_PER_VOXEL * k * b3)
-    print(f"K8 fused_tsdf_update: not ported, 0 launches a frame; bound_ms {b_ms!r} "
-          f"({b_by}) at K={k} rows x {b3} voxels", flush=True)
+def touched_counts(cfg, frames, states_T):
+    """Per frame of the march path: blocks its truncation band touches, to
+    set against the list length K (touched blocks beyond K skip a frame)."""
+    from instancefusion_tpu_torch.ops import blocks, preprocess
+
+    out = []
+    for f, T in zip(frames, states_T):
+        d0 = preprocess.build_frame_pyramid(f.depth, cfg.intrinsics, cfg.preprocess, 1)[0]
+        out.append(int(blocks.touched_blocks_mask(d0["depth"], T, cfg.intrinsics,
+                                                  cfg.tsdf).sum()))
+    return out
+
+
+def tsdf_update_record(cfg, state, frame, launches):
+    """K8 against its plain version on the march path's last state and the
+    next frame's association (touched blocks, allocated, listed), on cloned
+    planes, with color and depth only."""
+    from instancefusion_tpu_torch.ops import blocks, preprocess
+    from instancefusion_tpu_torch.ops.kernels import tsdf as ktsdf
+
+    intr, tcfg = cfg.intrinsics, cfg.tsdf
+    d0 = preprocess.build_frame_pyramid(frame.depth, intr, cfg.preprocess, 1)[0]["depth"]
+    T = frame.T_wc
+    touched = blocks.touched_blocks_mask(d0, T, intr, tcfg)
+    vol = blocks.allocate_touched(state.volume, touched, tcfg)
+    k = min(tcfg.touched_capacity, blocks.num_blocks_per_axis(tcfg) ** 3)
+    slots, valid = blocks.compact_touched_slots(vol, touched, tcfg, k)
+    rows = torch.zeros(vol.sdf.shape[0], dtype=torch.bool, device=d0.device)
+    rows[slots[valid].long()] = True
+    n_valid, b3 = int(valid.sum()), tcfg.block_size ** 3
+    before = (vol.sdf.clone(), vol.weight.clone(), vol.color.clone())
+    errs, notes = [], []
+    for with_color in (True, False):
+        psi, w_obs, obs = blocks.touched_observations(
+            vol, slots, valid, d0, frame.color if with_color else None, T, intr, tcfg)
+        args = (slots, valid, psi, w_obs, obs, tcfg.max_weight)
+        maps_k = [x.clone() for x in before]
+        maps_r = [x.clone() for x in before]
+        ktsdf.tsdf_update(*maps_k, *args)
+        ktsdf.tsdf_update_ref(*maps_r, *args)
+        for name, a, b, rtol, atol in zip(("sdf", "weight", "color"), maps_k, maps_r,
+                                          (1e-5, 1e-6, 1e-5), (1e-6, 0.0, 1e-6)):
+            errs.append((a[rows] - b[rows]).abs().max().item())
+            check(torch.allclose(a[rows], b[rows], rtol=rtol, atol=atol),
+                  f"K8 {name} (color {with_color}) differs from its plain version by "
+                  f"{errs[-1]} (rtol {rtol}, atol {atol})")
+        for name, a, b in zip(("sdf", "weight", "color"), maps_k, before):
+            check(torch.equal(a[~rows], b[~rows]),
+                  f"K8 (color {with_color}) changed {name} rows it was not given")
+        if not with_color:
+            check(torch.equal(maps_k[2], before[2]), "K8 without color changed color")
+        fused = int((w_obs > 0).sum())
+        notes.append(f"color {with_color}: {fused} voxels observed, sdf/weight/color max "
+                     f"err {errs[-3:]}")
+        if with_color:
+            bench = [x.clone() for x in before]
+            ms = time_ms(lambda: ktsdf.tsdf_update(*bench, *args), 200)
+            plain_ms = plain_time_ms(lambda: ktsdf.tsdf_update_ref(*bench, *args), 20)
+    n_touched = int(touched.sum())
+    return record(
+        "K8", launches, max(errs), ms, plain_ms,
+        TSDF_UPDATE_BYTES_PER_VOXEL * n_valid * b3,
+        TSDF_UPDATE_FLOPS_PER_VOXEL * n_valid * b3, None,
+        f"K={k} listed, {n_touched} blocks touched, {n_valid} valid rows x {b3} voxels; "
+        f"{'; '.join(notes)}; tolerance: sdf and color rtol 1e-5 atol 1e-6, weight rtol "
+        f"1e-6 (tests/test_pallas.py:95-104), rows not listed bit-identical; timed with "
+        f"color; library: none (no single PyTorch call)",
+    )
 
 
 def preprocess_record(cfg, frame, launches):
@@ -938,11 +1034,21 @@ def main() -> None:
     rstate, rlaunches, rinfos, wr = run_path(rcfg, tex[:n], poses[:n], card,
                                              "photometric path", per_frame=RGB_PER_FRAME)
     photometric_checks(rcfg, rstate, rinfos, wr)
+    mcfg = march_config()
+    mstate, mlaunches, minfos, _ = run_path(mcfg, frames[:n], poses[:n], card, "march path",
+                                            per_frame=MARCH_PER_FRAME)
+    k = mcfg.tsdf.touched_capacity
+    touched = touched_counts(mcfg, frames[:n], poses[:n])
+    print(f"march path: blocks touched per frame (list length K={k}): min {min(touched)}, "
+          f"max {max(touched)}, frames over K: {sum(c > k for c in touched)}; {touched}",
+          flush=True)
+    dcfg = dense_config()
+    run_path(dcfg, frames[:n], poses[:n], card, "dense path", per_frame=DENSE_PER_FRAME)
     recs = [preprocess_record(cfg, frames[n], launches)]
     recs += kernel_phase(cfg, state, frames[n], launches)
     recs.append(label_vote_record(icfg, istate, frames[n], ilaunches))
     recs += rgb_kernel_phase(rcfg, rstate, tex[n], tex[n - 1], rlaunches)
-    unported_bound(cfg)
+    recs.append(tsdf_update_record(mcfg, mstate, frames[n], mlaunches))
     # Last: the local loop drifts and ages a copy of the state's stamps and pose.
     local_loop_phase(rcfg, rstate, tex[n - 1], card)
     head_phase(icfg, istate, frames[:n], frames[n], card)

@@ -1,7 +1,8 @@
 """Engine state and head weights to and from numpy arrays.
 
 State arrays are keyed by the state's field path, e.g. ``"T_wc"``,
-``"volume.sdf"``, ``"pred.depth"``, ``"votes.label"``, ``"table.cls"``,
+``"volume.sdf"`` (a block map's or the dense volume's, by
+``EngineConfig.map_kind``), ``"pred.depth"``, ``"votes.label"``, ``"table.cls"``,
 ``"stamp"``, ``"prev_coarse.0"`` (vmap; ``.1`` nmap, ``.2`` valid), the
 same names for this package's ``SlamState`` and the reference's, so a run
 of either engine can be carried into the other mid-sequence.  The
@@ -23,9 +24,11 @@ from instancefusion_tpu_torch.engine.slam import SlamState
 from instancefusion_tpu_torch.ops.blocks import BlockMap
 from instancefusion_tpu_torch.ops.labels import LabelVotes
 from instancefusion_tpu_torch.ops.raycast import RaycastMaps
+from instancefusion_tpu_torch.ops.tsdf import TsdfVolume
 
 _TOP = ("T_wc", "pred_T_wc", "frame_idx", "lost_frames", "T_prev_wc")
-_GROUPS = (("volume", BlockMap), ("pred", RaycastMaps), ("votes", LabelVotes),
+# The volume's class is picked by the configuration's map kind.
+_GROUPS = (("volume", None), ("pred", RaycastMaps), ("votes", LabelVotes),
            ("table", InstanceTable))
 # Fields that are None unless the configuration asks for them.
 _OPTIONAL = ("stamp", "drift_ewma")
@@ -59,12 +62,20 @@ def state_from_numpy(arrays: dict, cfg: EngineConfig, device=None) -> SlamState:
 
     groups = {}
     for prefix, cls in _GROUPS:
+        if cls is None:
+            cls = BlockMap if cfg.map_kind == "blocks" else TsdfVolume
         if f"{prefix}.{cls._fields[0]}" in arrays:
             groups[prefix] = cls(**{f: get(f"{prefix}.{f}") for f in cls._fields})
-    nb = cfg.tsdf.grid_size // cfg.tsdf.block_size
-    if groups["volume"].directory.shape != (nb, nb, nb):
-        raise ValueError(f"directory shape {tuple(groups['volume'].directory.shape)} "
-                         f"does not match the configuration's {(nb, nb, nb)}")
+    if "volume" not in groups:
+        raise ValueError(f"no {cfg.map_kind} volume among the arrays")
+    vol = groups["volume"]
+    if cfg.map_kind == "blocks":
+        nb = cfg.tsdf.grid_size // cfg.tsdf.block_size
+        what, shape, want = "directory", tuple(vol.directory.shape), (nb, nb, nb)
+    else:
+        what, shape, want = "sdf", tuple(vol.sdf.shape), (cfg.tsdf.grid_size,) * 3
+    if shape != want:
+        raise ValueError(f"{what} shape {shape} does not match the configuration's {want}")
     optional = {name: get(name) for name in _OPTIONAL if name in arrays}
     if "prev_coarse.0" in arrays:
         optional["prev_coarse"] = tuple(get(f"prev_coarse.{i}") for i in range(3))

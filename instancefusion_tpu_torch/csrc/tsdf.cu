@@ -1,6 +1,8 @@
-// TSDF integrate kernel for Hopper (sm_90a), K4.
+// TSDF kernels for Hopper (sm_90a): integrate (K4) and the running-average
+// update of listed rows (K8).
 //
-// Replaces instancefusion_tpu/ops/pallas/tsdf.py:fused_integrate and
+// K4 (integrate_kernel) replaces
+// instancefusion_tpu/ops/pallas/tsdf.py:fused_integrate and
 // fused_integrate_groups (_integrate_kernel).  The TPU kernel sampled the
 // depth and color images for each voxel through one-hot matmuls over a
 // tile-aligned image window, addressed the payload by groups of 8 rows and
@@ -14,9 +16,28 @@
 // version (ops/blocks.py integrate_slots of the reference, jnp branch).
 // Rounding is half to even (rintf), like jnp.round / torch.round.
 //
-// Bound: bytes.  Each listed block reads and writes its sdf and weight rows
+// K4's bound: bytes.  Each listed block reads and writes its sdf and weight rows
 // (2 KB each) and, on color frames, its packed color row (6 KB); the image
 // reads hit L2.  Coalescing is free: thread i touches float i of each row.
+
+// K8 (tsdf_update_kernel, below) replaces
+// instancefusion_tpu/ops/pallas/tsdf.py:fused_tsdf_update (_update_kernel):
+// the weighted running average of sdf, weight and packed color over rows
+// whose observations (psi, w_obs, packed color obs) were computed outside
+// the kernel, as the touched-block integrate of the block map does.  The
+// TPU kernel took gathered rows in 64-row tiles and left the scatter back
+// to XLA; here one thread per voxel of a listed slot reads the payload row
+// in place and writes it back, and entries whose valid flag is false are
+// never read or written (their slot holds 0, a real block).  A null color
+// pointer updates sdf and weight only (depth-only frames, maps without
+// color).  Arithmetic follows _update_kernel: products by the reciprocal of
+// the clamped weight.
+//
+// K8's bound: bytes.  Per voxel of a valid row: sdf and weight read and written
+// (16 B), psi and w_obs read (8 B), and with color three payload floats read
+// and written and three observations read (36 B); about 25 flops.
+// Consecutive threads touch consecutive floats of each row and of each
+// observation row.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,7 +100,53 @@ __global__ void integrate_kernel(
   }
 }
 
+__global__ void tsdf_update_kernel(
+    const int32_t* __restrict__ slots, const uint8_t* __restrict__ valid,
+    long long n, int b3, float* __restrict__ sdf, float* __restrict__ weight,
+    float* __restrict__ color, const float* __restrict__ psi,
+    const float* __restrict__ w_obs, const float* __restrict__ obs,
+    float max_weight, float color_gain) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long k = i / b3;
+  if (!valid[k]) return;
+  const int v = (int)(i - k * b3);
+  const long long slot = slots[k];
+  const long long row = slot * b3 + v;
+  const float w_old = weight[row];
+  const float wo = w_obs[i];
+  const float w_new = w_old + wo;
+  const float inv = 1.0f / fmaxf(w_new, 1e-6f);
+  if (w_new > 0.0f) sdf[row] = (sdf[row] * w_old + psi[i] * wo) * inv;
+  weight[row] = fminf(w_new, max_weight);
+  if (color != nullptr) {
+    const float wc = color_gain * wo;
+    const float inv_c = 1.0f / fmaxf(w_old + wc, 1e-6f);
+    for (int c = 0; c < 3; ++c) {
+      const long long crow = slot * 3 * b3 + (long long)c * b3 + v;
+      const float o = obs[k * 3 * b3 + (long long)c * b3 + v];
+      color[crow] = (color[crow] * w_old + o * wc) * inv_c;
+    }
+  }
+}
+
 }  // namespace
+
+extern "C" int ifl_tsdf_update(const int32_t* slots, const uint8_t* valid,
+                               int k, int b3, float* sdf, float* weight,
+                               float* color, const float* psi,
+                               const float* w_obs, const float* obs,
+                               float max_weight, float color_gain,
+                               void* stream) {
+  if (k == 0) return 0;
+  const long long n = (long long)k * b3;
+  const int threads = 256;
+  const long long blocks = (n + threads - 1) / threads;
+  tsdf_update_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      slots, valid, n, b3, sdf, weight, color, psi, w_obs, obs, max_weight,
+      color_gain);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int ifl_integrate(const int32_t* slots, const uint8_t* valid, int k,
                              const int32_t* block_coords, float* sdf,

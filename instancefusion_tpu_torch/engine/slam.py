@@ -1,27 +1,36 @@
-"""SLAM engine main path: track -> fuse -> predict (port of ``engine/slam.py``).
+"""SLAM engine: track -> fuse -> predict (port of ``engine/slam.py``).
 
-The port runs the block-map engine with splat prediction
-(``map_kind="blocks"``, ``RaycastConfig.use_splat``), the configuration
-``bench.py`` times.  One frame runs: preprocess (kernel K1), 3-level ICP
-(K2 and K3), ``blocks.discover_allocate``, the in-frustum slot list, TSDF
-integrate (K4) and splat prediction (K5).  With ``use_instances`` (config3)
-a frame that carries a segmentation goes through ``step_seg``: the same
-step, then ``fuse_segmentation`` (mask refinement, predicted-id sampling,
-instance merges and association, label votes with K7).  With
-``rgb_weight > 0`` and ``use_color`` the ICP adds the photometric term
-against the predicted color's intensity; ``track_stamps`` keeps per-slot
+One frame runs: preprocess (kernel K1), 3-level ICP (K2 and K3), then the
+map update, by map kind (``EngineConfig.map_kind``):
+
+- the block map with splat prediction (``RaycastConfig.use_splat``, the
+  configuration ``bench.py`` times): ``blocks.discover_allocate``, the
+  in-frustum slot list, TSDF integrate (K4) and splat prediction (K5);
+- the block map without it: the touched-block ``blocks.integrate`` (K8)
+  and the marched ``blocks.raycast`` (with the depth prior and
+  screen-space normals when the configuration asks for them);
+- the dense volume (config1): ``ops/tsdf.integrate`` and the dense
+  ``ops/raycast.raycast``, plain PyTorch as in the reference.
+
+The last two fuse the frame color on every frame (no cadence), as the
+reference does.  With ``use_instances`` (config3, block map only) a frame
+that carries a segmentation goes through ``step_seg``: the same step, then
+``fuse_segmentation`` (mask refinement, predicted-id sampling, instance
+merges and association, label votes with K7).  With ``rgb_weight > 0`` and
+``use_color`` the ICP adds the photometric term against the predicted
+color's intensity; ``track_stamps`` (block map only) keeps per-slot
 observation stamps for ``engine/localloop.py``; ``consistency_check`` runs
 the drift sentinel, a coarse frame-to-frame ICP beside the frame-to-model
-one.  The dense map and sharded maps are later slices: configurations
-that ask for them raise.
+one.  Sharded maps are a later slice: configurations that ask for them
+raise.
 
 The state is a ``NamedTuple`` of tensors on one device, as in the
 reference.  ``step`` keeps everything on the device (no host read per
-frame) and updates the map's payload in place: the state passed in must
-not be used after the call; rebind it, as with the reference's donated
-step.  The color cadence needs the frame number on the host, so the state
-carries it as a plain int (``frame_count``) beside the device counter
-``frame_idx``.
+frame); on the block map it updates the map's payload in place: the state
+passed in must not be used after the call; rebind it, as with the
+reference's donated step.  The color cadence needs the frame number on the
+host, so the state carries it as a plain int (``frame_count``) beside the
+device counter ``frame_idx``.
 """
 
 from __future__ import annotations
@@ -36,13 +45,27 @@ from instancefusion_tpu_torch.config import EngineConfig
 from instancefusion_tpu_torch.engine import instances as inst
 from instancefusion_tpu_torch.geometry.se3 import se3_exp, se3_inverse, se3_log
 from instancefusion_tpu_torch.models.segmentation import Segmentation
-from instancefusion_tpu_torch.ops import blocks, icp, labels, preprocess
+from instancefusion_tpu_torch.ops import blocks, icp, labels, preprocess, tsdf
+from instancefusion_tpu_torch.ops import raycast as rc
 from instancefusion_tpu_torch.ops.raycast import RaycastMaps
+
+
+class _DenseOps:
+    """Dense-volume map interface (config1)."""
+
+    allocate = staticmethod(tsdf.allocate)
+    integrate = staticmethod(tsdf.integrate)
+    raycast = staticmethod(rc.raycast)
+
+
+def _map_ops(cfg: EngineConfig):
+    """Map-kind dispatch: the dense volume (config1) or the block map."""
+    return blocks if cfg.map_kind == "blocks" else _DenseOps
 
 
 class SlamState(NamedTuple):
     T_wc: torch.Tensor  # (4,4) current camera-to-world pose
-    volume: blocks.BlockMap
+    volume: tsdf.TsdfVolume | blocks.BlockMap
     pred: RaycastMaps  # model prediction rendered at pred_T_wc
     pred_T_wc: torch.Tensor  # (4,4) pose the prediction was rendered from
     frame_idx: torch.Tensor  # () i32
@@ -75,11 +98,6 @@ class StepInfo(NamedTuple):
 
 
 def _check_supported(cfg: EngineConfig) -> None:
-    if cfg.map_kind != "blocks" or not cfg.raycast.use_splat:
-        raise NotImplementedError(
-            "this port runs the block map with splat prediction only "
-            "(map_kind='blocks', RaycastConfig(use_splat=True))"
-        )
     if cfg.num_shards != 1:
         raise NotImplementedError("sharded maps are not ported yet")
 
@@ -103,11 +121,15 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
         valid=torch.zeros((h, w), dtype=torch.bool, device=dev),
     )
     votes = table = None
-    if cfg.use_instances:  # on the block map, which _check_supported ensures
+    if cfg.use_instances:
+        if cfg.map_kind != "blocks":
+            raise ValueError("instance fusion requires map_kind='blocks'")
         votes = labels.allocate(cfg.tsdf, dev)
         table = inst.allocate(cfg.instances, dev)
     stamp = prev_coarse = drift_ewma = None
     if cfg.track_stamps:
+        if cfg.map_kind != "blocks":
+            raise ValueError("track_stamps requires map_kind='blocks'")
         stamp = torch.zeros((cfg.tsdf.table_capacity, 2), dtype=torch.int32, device=dev)
     if cfg.consistency_check:
         s = 1 << max(cfg.icp.levels - 2, 0)
@@ -117,7 +139,7 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
         drift_ewma = torch.zeros((3,), **f32)
     return SlamState(
         T_wc=T0,
-        volume=blocks.allocate(cfg.tsdf, dev, with_color=cfg.use_color),
+        volume=_map_ops(cfg).allocate(cfg.tsdf, dev, with_color=cfg.use_color),
         pred=pred,
         pred_T_wc=T0.clone(),
         frame_idx=torch.zeros((), dtype=torch.int32, device=dev),
@@ -182,14 +204,42 @@ def tsdf_integrate_count(depth: torch.Tensor) -> torch.Tensor:
     return torch.sum((depth > 0).float())
 
 
+def _march_map_update(cfg: EngineConfig, volume, pred_prev_depth, depth_eff,
+                      frame_color, T_new):
+    """Integrate through the map kind's own ``integrate`` and predict with its
+    marched raycast (the block map without splat prediction, or the dense
+    volume); the frame color is fused on every frame."""
+    ops = _map_ops(cfg)
+    pred_color = cfg.use_color and (
+        cfg.raycast.predict_color or cfg.icp.rgb_weight > 0.0
+    )
+    volume = ops.integrate(volume, depth_eff, frame_color, T_new, cfg.intrinsics, cfg.tsdf)
+    rc_kwargs = {}
+    if cfg.map_kind == "blocks":
+        if cfg.raycast.use_depth_prior:
+            # This frame's fused depth; holes (and lost frames, which fused
+            # nothing) fall back to the previous prediction.
+            rc_kwargs["depth_prior"] = torch.where(depth_eff > 0.0, depth_eff,
+                                                   pred_prev_depth)
+        rc_kwargs["screen_space_normals"] = cfg.raycast.screen_space_normals
+    pred = ops.raycast(volume, T_new, cfg.intrinsics, cfg.tsdf, cfg.raycast,
+                       with_color=pred_color, **rc_kwargs)
+    return volume, pred
+
+
 def _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok):
     """Fuse the gated depth, predict, and update the stamps when kept;
     returns (volume, pred, stamp)."""
     depth_masked = torch.where(fuse_ok, d0, torch.zeros_like(d0))
-    volume, pred = _splat_map_update(
-        cfg, state.volume, state.pred.depth, depth_masked,
-        color if cfg.use_color else None, T_new, state.frame_count,
-    )
+    frame_color = color if cfg.use_color else None
+    if cfg.map_kind == "blocks" and cfg.raycast.use_splat:
+        volume, pred = _splat_map_update(
+            cfg, state.volume, state.pred.depth, depth_masked, frame_color, T_new,
+            state.frame_count,
+        )
+    else:
+        volume, pred = _march_map_update(cfg, state.volume, state.pred.depth,
+                                         depth_masked, frame_color, T_new)
     stamp = state.stamp
     if stamp is not None:
         # Allocation made a new n_active; the incoming one is the slot

@@ -51,6 +51,16 @@ def project(intr: Intrinsics, p_cam: torch.Tensor):
     return u, v, z
 
 
+def nearest_pixel(intr: Intrinsics, u: torch.Tensor, v: torch.Tensor):
+    """Nearest pixel of projections (u, v), rounding half to even: (whether
+    it lies in the image, its flat index clamped into the image, i64)."""
+    ui, vi = torch.round(u), torch.round(v)
+    in_img = (ui >= 0) & (ui < intr.width) & (vi >= 0) & (vi < intr.height)
+    pix = (torch.nan_to_num(vi).clamp(0, intr.height - 1).long() * intr.width
+           + torch.nan_to_num(ui).clamp(0, intr.width - 1).long())
+    return in_img, pix
+
+
 def _pixel_grid(h: int, w: int, dtype, device):
     vv, uu = torch.meshgrid(
         torch.arange(h, dtype=dtype, device=device),

@@ -1,12 +1,25 @@
-"""Sparse voxel-block TSDF map, main-path subset (port of ``ops/blocks.py``).
+"""Sparse voxel-block TSDF map (port of ``ops/blocks.py``).
 
 A dense block directory ``i32[Nb, Nb, Nb]`` maps block coordinates to
 payload slots; payload rows hold a block's voxels (``f32[C, B^3]`` sdf and
 weight, packed ``[r | g | b]`` color ``f32[C, 3 B^3]``).  Unobserved voxels
-keep the out-of-band sdf sentinel ``UNOBSERVED``.  New blocks get slots by
-prefix sum, in list form (``discover_allocate``), and each frame's work is
-one compacted list of in-frustum slots (``frustum_slots``) that feeds both
-integration (kernel K4) and splat prediction (kernel K5).
+keep the out-of-band sdf sentinel ``UNOBSERVED``.
+
+Two update paths, as in the reference:
+
+- splat prediction: new blocks get slots by prefix sum, in list form
+  (``discover_allocate``), and each frame's work is one compacted list of
+  in-frustum slots (``frustum_slots``) that feeds both integration (kernel
+  K4, ``integrate_slots``) and splat prediction (kernel K5);
+- the marched raycast: ``integrate`` marks the blocks the frame's
+  truncation band touches, allocates them over the directory
+  (``allocate_touched``), computes each listed voxel's observation in
+  PyTorch (``touched_observations``) and runs the running average in one
+  pass (kernel K8); ``raycast`` then marches the rays with empty-space
+  skipping over the directory and trilinear samples (``sample_trilinear``,
+  ``sample_color_trilinear``, ``sdf_gradient``).
+
+``clean`` culls weak and empty blocks and compacts the slot space.
 
 Everything stays on the device with static shapes.  Where the reference
 scatters with ``mode="drop"``, this module scatters into one spill element
@@ -22,12 +35,14 @@ from typing import NamedTuple
 import torch
 
 from instancefusion_tpu_torch.config import TsdfConfig
+from instancefusion_tpu_torch.config import RaycastConfig
 from instancefusion_tpu_torch.geometry.camera import Intrinsics, ray_directions
 from instancefusion_tpu_torch.geometry.se3 import se3_inverse, transform_points
+from instancefusion_tpu_torch.ops import tsdf as dense
 from instancefusion_tpu_torch.ops.common import decimate, interior
 from instancefusion_tpu_torch.ops.kernels import raycast as splat_kernels
 from instancefusion_tpu_torch.ops.kernels import tsdf as tsdf_kernels
-from instancefusion_tpu_torch.ops.raycast import RaycastMaps
+from instancefusion_tpu_torch.ops.raycast import RaycastMaps, secant_start, world_rays
 
 # Unobserved-voxel SDF sentinel (stored sdf is in [-1, 1] once fused).
 UNOBSERVED = 2.0
@@ -209,6 +224,31 @@ def touched_blocks_mask(depth: torch.Tensor, T_wc: torch.Tensor, intr: Intrinsic
     return mask[:nb3]
 
 
+def allocate_touched(bm: BlockMap, touched: torch.Tensor, cfg: TsdfConfig) -> BlockMap:
+    """Give payload slots to touched blocks that have none (prefix sum over
+    the directory); blocks beyond capacity are dropped and counted in
+    ``overflow``."""
+    nb = num_blocks_per_axis(cfg)
+    c = cfg.table_capacity
+    dir_flat = bm.directory.reshape(-1)
+    need = touched & (dir_flat < 0)
+    order = torch.cumsum(need.to(torch.int32), 0, dtype=torch.int32) - 1
+    new_slot = bm.n_active + order
+    fits = need & (new_slot < c - RESERVED_SLOTS)
+    n_new = torch.sum(fits, dtype=torch.int32)
+    n_drop = torch.sum(need, dtype=torch.int32) - n_new
+    idx = torch.arange(nb * nb * nb, dtype=torch.int32, device=dir_flat.device)
+    coords = torch.stack([idx // (nb * nb), (idx // nb) % nb, idx % nb], -1)
+    block_coords = _set_with_spill(
+        bm.block_coords, torch.where(fits, new_slot, torch.full_like(new_slot, c)), coords)
+    return bm._replace(
+        directory=torch.where(fits, new_slot, dir_flat).reshape(bm.directory.shape),
+        block_coords=block_coords,
+        n_active=bm.n_active + n_new,
+        overflow=bm.overflow + n_drop,
+    )
+
+
 def compact_touched_slots(bm: BlockMap, touched: torch.Tensor, cfg: TsdfConfig, k: int):
     """Static-size list of the payload slots of touched, allocated blocks.
 
@@ -219,6 +259,56 @@ def compact_touched_slots(bm: BlockMap, touched: torch.Tensor, cfg: TsdfConfig, 
     slots = bm.directory.reshape(-1)[idx.long()]
     valid = tvalid & (slots >= 0)
     return torch.where(valid, slots, torch.zeros_like(slots)), valid
+
+
+def touched_observations(bm: BlockMap, slots, valid, depth, color, T_wc,
+                         intr: Intrinsics, cfg: TsdfConfig):
+    """Each listed voxel's observation, the reference's projective
+    association (its jnp ``integrate_slots``): psi and w_obs f32[K, B^3],
+    and the frame's color at each voxel's pixel as packed rows f32[K, 3 B^3]
+    (None without color).
+
+    Voxels project with round half to even; a voxel observes where it lies
+    in the image in front of the camera, the depth there is positive and
+    not more than one truncation band in front of it, and its list entry
+    is valid.
+    """
+    z, pix, seen = tsdf_kernels.project_voxels(bm.block_coords, slots, T_wc, intr, cfg)
+    d = depth.reshape(-1)[pix]
+    sdf_obs = d - z
+    ok = seen & (d > 0.0) & (sdf_obs > -cfg.trunc) & valid[:, None]
+    psi = torch.clamp(sdf_obs / cfg.trunc, -1.0, 1.0)
+    obs = None
+    if color is not None and bm.color.numel():
+        obs = pack_color(color.reshape(-1, 3)[pix])
+    return psi, ok.float(), obs
+
+
+def integrate(bm: BlockMap, depth: torch.Tensor, color: torch.Tensor | None,
+              T_wc: torch.Tensor, intr: Intrinsics, cfg: TsdfConfig,
+              max_touched: int | None = None) -> BlockMap:
+    """Fuse one frame: allocate the blocks its truncation band touches and
+    update only those (the running average is kernel K8), in place.
+
+    The same arithmetic as the dense ``tsdf.integrate`` on observed voxels,
+    over ``max_touched * B^3`` voxels (default ``touched_capacity``) instead
+    of the whole grid; touched blocks beyond the list are skipped this
+    frame.  ``color`` None (or a map without color) fuses depth only.
+
+    The observations are made in PyTorch and materialized (K x B^3 x 5
+    floats) before K8 reads them, as the reference splits the work; the
+    splat path's ``integrate_slots`` (K4) does both in one kernel.
+    """
+    if max_touched is None:
+        max_touched = cfg.touched_capacity
+    touched = touched_blocks_mask(depth, T_wc, intr, cfg)
+    bm = allocate_touched(bm, touched, cfg)
+    k = min(max_touched, num_blocks_per_axis(cfg) ** 3)
+    slots, valid = compact_touched_slots(bm, touched, cfg, k)
+    psi, w_obs, obs = touched_observations(bm, slots, valid, depth, color, T_wc, intr, cfg)
+    tsdf_kernels.tsdf_update(bm.sdf, bm.weight, bm.color, slots, valid, psi, w_obs,
+                             obs, cfg.max_weight)
+    return bm
 
 
 def frustum_mask(bm: BlockMap, T_wc, intr: Intrinsics, cfg: TsdfConfig,
@@ -323,3 +413,219 @@ def raycast_splat(
         color=torch.where(valid[..., None], imgs.color, zero3),
         valid=valid,
     )
+
+
+def _corner_rows(bm: BlockMap, corners: torch.Tensor, cfg: TsdfConfig):
+    """Per stencil corner (voxel indices i64[..., 8, 3] inside the grid):
+    whether its block is allocated, and its flat voxel index into the
+    payload rows (slot * B^3 + voxel; slot 0 where unallocated)."""
+    b = cfg.block_size
+    nb = num_blocks_per_axis(cfg)
+    blk = corners // b
+    loc = corners - blk * b
+    slot = bm.directory.reshape(-1)[(blk[..., 0] * nb + blk[..., 1]) * nb + blk[..., 2]]
+    lflat = (loc[..., 0] * b + loc[..., 1]) * b + loc[..., 2]
+    return slot >= 0, torch.clamp(slot, min=0).long() * (b * b * b) + lflat
+
+
+def sample_trilinear(bm: BlockMap, p_w: torch.Tensor, cfg: TsdfConfig):
+    """Trilinear SDF sample at world points (..., 3) across block borders:
+    (sdf, valid).
+
+    No weight is gathered: an unallocated or never-fused corner reads as
+    the UNOBSERVED sentinel, so valid = stencil in bounds and every corner
+    below 1.5.
+    """
+    inb, corners, tw = dense.stencil(p_w, cfg)
+    have, vidx = _corner_rows(bm, corners, cfg)
+    s = torch.where(have, bm.sdf.reshape(-1)[vidx], UNOBSERVED)
+    val = dense.corner_sum(tw * s)
+    return val, inb & (torch.amax(s, dim=-1) < 1.5)
+
+
+def sample_color_trilinear(bm: BlockMap, p_w: torch.Tensor, cfg: TsdfConfig):
+    """Trilinear color sample at world points (..., 3) -> (..., 3); corners
+    in unallocated blocks add nothing."""
+    _, corners, tw = dense.stencil(p_w, cfg)
+    have, vidx = _corner_rows(bm, corners, cfg)
+    b3 = cfg.block_size ** 3
+    # Packed rows: slot * 3 B^3 + channel * B^3 + voxel.
+    base = vidx + (vidx // b3) * (2 * b3)
+    chan = torch.arange(3, device=p_w.device) * b3
+    c = bm.color.reshape(-1)[base[..., None] + chan]  # (..., 8, 3)
+    return dense.corner_sum(((tw * have)[..., None] * c).transpose(-1, -2))
+
+
+def occupancy_at(bm: BlockMap, p_w: torch.Tensor, cfg: TsdfConfig) -> torch.Tensor:
+    """Is the block containing each point allocated?  bool(...)."""
+    nb = num_blocks_per_axis(cfg)
+    bsz = cfg.block_size * cfg.voxel_size
+    g = torch.floor((p_w - dense.vec3(cfg.origin, p_w.device)) / bsz)
+    inb = torch.all((g >= 0) & (g < nb), dim=-1)
+    gc = torch.nan_to_num(g).clamp(0, nb - 1).long()
+    flat = (gc[..., 0] * nb + gc[..., 1]) * nb + gc[..., 2]
+    return inb & (bm.directory.reshape(-1)[flat] >= 0)
+
+
+def sdf_gradient(bm: BlockMap, p_w: torch.Tensor, cfg: TsdfConfig):
+    """Central-difference SDF gradient over the block map (surface
+    normals): (unit normal (..., 3), valid)."""
+    s, v = sample_trilinear(bm, dense.gradient_points(p_w, cfg.voxel_size), cfg)
+    return dense.gradient_from_samples(s, v)
+
+
+def raycast(
+    bm: BlockMap,
+    T_wc: torch.Tensor,
+    intr: Intrinsics,
+    tsdf_cfg: TsdfConfig,
+    cfg: RaycastConfig,
+    with_color: bool = True,
+    depth_prior: torch.Tensor | None = None,
+    screen_space_normals: bool = False,
+) -> RaycastMaps:
+    """Two-speed ray march with empty-space skipping over the directory.
+
+    Each step checks the directory at the current point: an unallocated
+    block is skipped to its exit face (DDA), an allocated one is marched at
+    the fine step (``step_scale * trunc``) with a trilinear sample and a
+    zero-crossing test; then ``refine_steps`` secant refinements.  The step
+    count is fixed: ``int((far - near) / fine) + 1``, or with
+    ``depth_prior`` (this frame's fused depth) ``int(2 * band / fine) + 3``
+    over the band of 1.5 trunc around the prior, where rays without a prior
+    miss.  ``screen_space_normals`` takes normals from image-space
+    differences of the hit points instead of the SDF gradient.  Nothing is
+    read back to the host.
+    """
+    dirs_w, ray_norm = world_rays(intr, T_wc)
+    origin_w = T_wc[:3, 3]
+    dev = T_wc.device
+    fine = cfg.step_scale * tsdf_cfg.trunc
+    bsz = tsdf_cfg.block_size * tsdf_cfg.voxel_size
+    map_origin = dense.vec3(tsdf_cfg.origin, dev)
+    max_steps = int((cfg.far - cfg.near) / fine) + 1
+    shape = ray_norm.shape
+    band = 1.5 * tsdf_cfg.trunc
+    if depth_prior is not None:
+        has_prior = depth_prior > 0.0
+        far = torch.full(shape, cfg.far, device=dev)
+        t_start = torch.where(
+            has_prior, torch.clamp((depth_prior - band) * ray_norm, min=cfg.near), far)
+        t_end = torch.where(has_prior, (depth_prior + band) * ray_norm, far)
+        max_steps = int(2.0 * band / fine) + 3
+    else:
+        t_start = torch.full(shape, cfg.near, device=dev)
+        t_end = torch.full(shape, cfg.far, device=dev)
+
+    def point_at(t):
+        return origin_w + t[..., None] * dirs_w
+
+    # Boundary-step constants: which face each ray leaves a block by, and
+    # the axes it does not move along (never the nearest face).
+    step_dir = (dirs_w >= 0.0).float()
+    moving = torch.abs(dirs_w) > 1e-9
+    safe_dir = torch.where(moving, dirs_w, 1e-9)
+
+    def boundary_step(p):
+        """Distance to just past the next block face, at least 0.1 voxel:
+        a skip always lands at an occupied block's entry face, never inside
+        it."""
+        g = (p - map_origin) / bsz
+        nxt = (torch.floor(g) + step_dir) * bsz + map_origin
+        dt_axis = torch.where(moving, (nxt - p) / safe_dir, torch.inf)
+        t_bound = torch.amin(torch.clamp(dt_axis, min=0.0), dim=-1)
+        return torch.clamp(t_bound + 0.05 * tsdf_cfg.voxel_size,
+                           min=0.1 * tsdf_cfg.voxel_size)
+
+    zeros = torch.zeros(shape, device=dev)
+    no = torch.zeros(shape, dtype=torch.bool, device=dev)
+    t, prev_sdf, prev_valid = t_start, zeros, no
+    t_lo, t_hi, s_lo, s_hi, found = zeros, zeros, zeros, zeros, no
+    for _ in range(max_steps):
+        p = point_at(t)
+        occ = occupancy_at(bm, p, tsdf_cfg)
+        s, v = sample_trilinear(bm, p, tsdf_cfg)
+        crossing = prev_valid & v & (prev_sdf > 0.0) & (s <= 0.0) & occ & ~found
+        t_lo = torch.where(crossing, t - fine, t_lo)
+        t_hi = torch.where(crossing, t, t_hi)
+        s_lo = torch.where(crossing, prev_sdf, s_lo)
+        s_hi = torch.where(crossing, s, s_hi)
+        found = found | crossing
+        dt = torch.where(found, zeros, torch.where(occ, fine, boundary_step(p)))
+        t = torch.minimum(t + dt, t_end)
+        prev_sdf, prev_valid = s, v & occ
+
+    t_star = secant_start(t_lo, t_hi, s_lo, s_hi)
+    for _ in range(cfg.refine_steps):
+        s, v = sample_trilinear(bm, point_at(t_star), tsdf_cfg)
+        t_star = torch.clamp(t_star + torch.where(v, s * tsdf_cfg.trunc, zeros),
+                             t_lo, t_hi)
+
+    p_hit = point_at(t_star)
+    if screen_space_normals:
+        normal_w, nvalid = _image_space_normals(p_hit, found, dirs_w)
+    else:
+        normal_w, nvalid = sdf_gradient(bm, p_hit, tsdf_cfg)
+    valid = found & nvalid
+    zero3 = torch.zeros_like(p_hit)
+    if with_color and bm.color.numel():
+        color = torch.where(valid[..., None],
+                            sample_color_trilinear(bm, p_hit, tsdf_cfg), zero3)
+    else:
+        color = zero3
+    return RaycastMaps(
+        vertex_w=torch.where(valid[..., None], p_hit, zero3),
+        normal_w=torch.where(valid[..., None], normal_w, zero3),
+        depth=torch.where(valid, t_star / ray_norm, zeros),
+        color=color,
+        valid=valid,
+    )
+
+
+def clean(bm: BlockMap, cfg: TsdfConfig, min_weight: float = 1.0, votes=None,
+          stamp: torch.Tensor | None = None):
+    """Cull low-confidence and empty blocks and compact the slot space.
+
+    A live block is allocated, reached ``min_weight`` at some voxel, and
+    holds an observed voxel at or below sdf 0.98 (a block with none holds no
+    surface).  Live rows move to the front in their old order (a stable
+    partition), freed rows take the empty fills (sdf UNOBSERVED, weight 0,
+    color 0, coords -1) and the directory is remapped.  Returns (bm, votes),
+    or (bm, votes, stamp) when ``stamp`` is given; ``votes`` (label -1,
+    count 0) and ``stamp`` (0) are compacted the same way when given.
+    """
+    c = bm.sdf.shape[0]
+    slot_ids = torch.arange(c, dtype=torch.int32, device=bm.sdf.device)
+    allocated = slot_ids < bm.n_active
+    best_w = torch.amax(bm.weight, dim=1)
+    observed = torch.where(bm.weight > 0.0, bm.sdf, UNOBSERVED)
+    empty = torch.amin(observed, dim=1) > 0.98
+    live = allocated & (best_w >= min_weight) & ~empty
+    n_live = torch.sum(live, dtype=torch.int32)
+    perm = torch.argsort((~live).to(torch.int32), stable=True)
+    order = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1  # old -> new
+    keep = slot_ids < n_live
+
+    def take(arr, fill):
+        out = arr[perm]
+        return torch.where(keep.reshape((c,) + (1,) * (out.dim() - 1)), out,
+                           torch.full_like(out, fill))
+
+    dir_flat = bm.directory.reshape(-1)
+    src = torch.clamp(dir_flat, 0, c - 1).long()
+    dir_new = torch.where((dir_flat >= 0) & live[src], order[src], -1)
+    bm_new = BlockMap(
+        directory=dir_new.to(torch.int32).reshape(bm.directory.shape),
+        block_coords=take(bm.block_coords, -1),
+        n_active=n_live,
+        overflow=bm.overflow,
+        sdf=take(bm.sdf, UNOBSERVED),
+        weight=take(bm.weight, 0.0),
+        color=take(bm.color, 0.0) if bm.color.numel() else bm.color,
+    )
+    votes_new = None
+    if votes is not None:
+        votes_new = type(votes)(label=take(votes.label, -1), count=take(votes.count, 0.0))
+    if stamp is not None:
+        return bm_new, votes_new, take(stamp, 0)
+    return bm_new, votes_new

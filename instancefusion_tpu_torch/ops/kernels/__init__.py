@@ -2,9 +2,9 @@
 
 K1 ``preprocess.fused_preprocess``, K2 ``icp.gather_target_maps``, K3
 ``icp.gn_iterations``, K4 ``tsdf.integrate``, K5 ``raycast.splat_planes``,
-K6 ``icp.normal_equations`` and K7 ``labels.label_vote``.  Each wrapper
-launches its kernel for CUDA tensors and runs its plain version for CPU
-tensors.
+K6 ``icp.normal_equations``, K7 ``labels.label_vote`` and K8
+``tsdf.tsdf_update``.  Each wrapper launches its kernel for CUDA tensors
+and runs its plain version for CPU tensors.
 """
 
 from instancefusion_tpu_torch.ops.kernels import icp, labels, preprocess, raycast, tsdf
@@ -22,6 +22,7 @@ def wrappers():
         "K5": raycast.splat_planes,
         "K6": icp.normal_equations,
         "K7": labels.label_vote,
+        "K8": tsdf.tsdf_update,
     }
 
 

@@ -14,10 +14,10 @@ import ctypes
 
 import torch
 
-from instancefusion_tpu_torch.geometry.camera import Intrinsics, project
-from instancefusion_tpu_torch.geometry.se3 import se3_inverse, transform_points
+from instancefusion_tpu_torch.geometry.camera import Intrinsics
+from instancefusion_tpu_torch.geometry.se3 import se3_inverse
 from instancefusion_tpu_torch.ops.kernels import _build
-from instancefusion_tpu_torch.ops.kernels.tsdf import voxel_centers
+from instancefusion_tpu_torch.ops.kernels.tsdf import project_voxels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -27,19 +27,6 @@ _SIGNATURES = {
 
 def _lib():
     return _build.load("labels", _SIGNATURES)
-
-
-def project_voxels(block_coords, slots, T_wc, intr: Intrinsics, cfg):
-    """Per voxel of the listed rows, (K, B^3) each: its camera depth z, the
-    flat index of the pixel it projects to (rounded half to even, clamped
-    into the image) and whether that pixel is in the image with z > 0."""
-    p_c = transform_points(se3_inverse(T_wc), voxel_centers(block_coords[slots.long()], cfg))
-    u, v, z = project(intr, p_c)
-    ui, vi = torch.round(u), torch.round(v)
-    seen = (ui >= 0) & (ui < intr.width) & (vi >= 0) & (vi < intr.height) & (z > 0.0)
-    pix = (vi.clamp(0, intr.height - 1).long() * intr.width
-           + ui.clamp(0, intr.width - 1).long())
-    return z, pix, seen
 
 
 def label_vote_ref(block_coords, label, count, slots, valid, depth, gid_image,

@@ -31,7 +31,7 @@ _TENT = 0.7
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ifl_splat": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_F] * 10 + [_P, _P],
+    "ifl_splat": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_F] * 11 + [_P, _P],
 }
 
 
@@ -45,16 +45,25 @@ class SplatImages(NamedTuple):
     color: torch.Tensor  # f32[H, W, 3]
 
 
+def _cam_row(p, T_cw, i: int):
+    """Camera coordinate i of world points (..., 3), summed left to right
+    one rounding at a time: ((x r0 + y r1) + z r2) + t.  The kernel does the
+    same without fused multiply-adds, so both place a voxel's tent on the
+    same pixels: a tent edge's weight times a near surface's softmin weight
+    would otherwise turn a 1-ulp difference into centimeters of depth."""
+    return ((p[..., 0] * T_cw[i, 0] + p[..., 1] * T_cw[i, 1])
+            + p[..., 2] * T_cw[i, 2]) + T_cw[i, 3]
+
+
 def _vote_terms(coords, sdf, weight, color, T_cw, intr: Intrinsics, cfg,
                 with_color: bool):
     """Per-voxel vote quantities (u, v, w, sm, d_abs, colors), each (K, B^3)."""
     p_w = voxel_centers(coords, cfg)
-    p_c = p_w @ T_cw[:3, :3].T + T_cw[:3, 3]
-    z = p_c[..., 2]
+    x, y, z = (_cam_row(p_w, T_cw, i) for i in range(3))
     vis = z > 0.05
     zs = torch.where(vis, z, torch.ones_like(z))
-    u = intr.fx * p_c[..., 0] / zs + intr.cx
-    v = intr.fy * p_c[..., 1] / zs + intr.cy
+    u = intr.fx * x / zs + intr.cx
+    v = intr.fy * y / zs + intr.cy
     w = torch.clamp(1.0 - torch.abs(sdf), min=0.0)
     conf = torch.clamp(weight * 0.25, max=1.0)
     w = w * w * conf * vis.float()
@@ -63,6 +72,10 @@ def _vote_terms(coords, sdf, weight, color, T_cw, intr: Intrinsics, cfg,
     b3 = sdf.shape[1]
     cols = [color[:, c * b3:(c + 1) * b3] for c in range(3)] if with_color else []
     return u, v, w, sm, d_abs, cols
+
+
+def _tent_k(intr: Intrinsics, cfg) -> float:
+    return _TENT * intr.fx * cfg.voxel_size
 
 
 def _block_terms(coords, T_cw, intr: Intrinsics, cfg, rmax: int):
@@ -76,10 +89,10 @@ def _block_terms(coords, T_cw, intr: Intrinsics, cfg, rmax: int):
 
     bits = torch.arange(8, device=coords.device)
     corner = torch.stack([bits // 4, (bits // 2) % 2, bits % 2], -1).float()
-    zmin = torch.amin(world(corner) @ T_cw[2, :3] + T_cw[2, 3], dim=1)
-    zc = (world(torch.full((1, 3), 0.5, device=coords.device)) @ T_cw[2, :3]
-          + T_cw[2, 3])[:, 0]
-    r_t = torch.clamp(_TENT * intr.fx * cfg.voxel_size / torch.clamp(zc, min=0.3),
+    zmin = torch.amin(_cam_row(world(corner), T_cw, 2), dim=1)
+    zc = _cam_row(world(torch.full((1, 3), 0.5, device=coords.device)), T_cw, 2)[:, 0]
+    # A number over a tensor is its reciprocal times the number in PyTorch.
+    r_t = torch.clamp(torch.reciprocal(torch.clamp(zc, min=0.3)) * _tent_k(intr, cfg),
                       1.0, float(rmax))
     return zmin <= 1e-3, r_t
 
@@ -203,7 +216,7 @@ def splat_planes(slots, slot_valid, block_coords, sdf, weight, color, T_wc,
         p(weight), p(color) if with_color else None, p(T_cw),
         intr.width, intr.height, cfg.block_size, rmax,
         intr.fx, intr.fy, intr.cx, intr.cy, cfg.voxel_size, cfg.trunc,
-        *cfg.origin, _TENT * intr.fx * cfg.voxel_size, p(acc),
+        *cfg.origin, cfg.block_size * cfg.voxel_size, _tent_k(intr, cfg), p(acc),
         _build.stream_handle(),
     )
     _build.check(err, "splat_planes")

@@ -1,10 +1,13 @@
-"""TSDF integrate kernel K4 (``csrc/tsdf.cu``) and its plain version.
+"""TSDF kernels K4 and K8 (``csrc/tsdf.cu``) and their plain versions.
 
-``integrate`` fuses one depth frame (and, on color frames, its colors) into
-the listed payload rows of a block map, in place: the map's ``sdf``,
+``integrate`` (K4) fuses one depth frame (and, on color frames, its colors)
+into the listed payload rows of a block map, in place: the map's ``sdf``,
 ``weight`` and ``color`` tensors are updated and no copy of the payload is
-made.  CUDA tensors launch the kernel, CPU tensors run ``integrate_ref``.
-``integrate.launches`` counts kernel launches.
+made.  ``tsdf_update`` (K8) is the running-average half alone: it takes
+per-voxel observations computed outside the kernel (the touched-block
+integrate of ``ops/blocks.py``) and updates the listed rows in place.
+CUDA tensors launch the kernels, CPU tensors run ``integrate_ref`` and
+``tsdf_update_ref``.  Each wrapper's ``launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -13,13 +16,14 @@ import ctypes
 
 import torch
 
-from instancefusion_tpu_torch.geometry.camera import Intrinsics
+from instancefusion_tpu_torch.geometry.camera import Intrinsics, nearest_pixel, project
 from instancefusion_tpu_torch.geometry.se3 import se3_inverse, transform_points
 from instancefusion_tpu_torch.ops.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ifl_integrate": [_P, _P, _I] + [_P] * 7 + [_I] * 3 + [_F] * 11 + [_P],
+    "ifl_tsdf_update": [_P, _P, _I, _I] + [_P] * 6 + [_F, _F, _P],
 }
 
 
@@ -38,6 +42,16 @@ def voxel_centers(coords: torch.Tensor, cfg) -> torch.Tensor:
     return torch.stack([p[..., i] + cfg.origin[i] for i in range(3)], dim=-1)
 
 
+def project_voxels(block_coords, slots, T_wc, intr: Intrinsics, cfg):
+    """Per voxel of the listed rows, (K, B^3) each: its camera depth z, the
+    flat index of the pixel it projects to (rounded half to even, clamped
+    into the image) and whether that pixel is in the image with z > 0."""
+    p_c = transform_points(se3_inverse(T_wc), voxel_centers(block_coords[slots.long()], cfg))
+    u, v, z = project(intr, p_c)
+    in_img, pix = nearest_pixel(intr, u, v)
+    return z, pix, in_img & (z > 0.0)
+
+
 def integrate_ref(block_coords, sdf, weight, color, slots, valid, depth,
                   frame_color, T_wc, intr: Intrinsics, cfg, color_gain=1.0):
     """Plain K4: the reference's jnp ``integrate_slots`` update, in place.
@@ -49,17 +63,10 @@ def integrate_ref(block_coords, sdf, weight, color, slots, valid, depth,
     averaged with weight ``color_gain`` when ``frame_color`` is given.
     """
     slots = slots[valid].long()  # valid slots are unique
-    p_c = transform_points(se3_inverse(T_wc), voxel_centers(block_coords[slots], cfg))
-    z = p_c[..., 2]
-    zs = torch.where(torch.abs(z) > 1e-12, z, torch.full_like(z, 1e-12))
-    u = torch.round(intr.fx * p_c[..., 0] / zs + intr.cx)
-    v = torch.round(intr.fy * p_c[..., 1] / zs + intr.cy)
-    in_img = (u >= 0) & (u < intr.width) & (v >= 0) & (v < intr.height)
-    pix = (torch.nan_to_num(v).clamp(0, intr.height - 1).long() * intr.width
-           + torch.nan_to_num(u).clamp(0, intr.width - 1).long())
+    z, pix, seen = project_voxels(block_coords, slots, T_wc, intr, cfg)
     d = depth.reshape(-1)[pix]
     sdf_obs = d - z
-    ok = in_img & (z > 0.0) & (d > 0.0) & (sdf_obs > -cfg.trunc)
+    ok = seen & (d > 0.0) & (sdf_obs > -cfg.trunc)
     psi = torch.clamp(sdf_obs / cfg.trunc, -1.0, 1.0)
     w_obs = ok.float()
 
@@ -119,3 +126,74 @@ def integrate(block_coords, sdf, weight, color, slots, valid, depth,
 
 
 integrate.launches = 0
+
+
+def tsdf_update_ref(sdf, weight, color, slots, valid, psi, w_obs, obs,
+                    max_weight, color_gain=1.0):
+    """Plain K8: the reference's ``_update_kernel`` on the valid listed rows,
+    in place; rows of invalid entries are not touched.
+
+    Per voxel: w_new = w_old + w_obs; sdf = (sdf w_old + psi w_obs) /
+    max(w_new, 1e-6) where w_new > 0 (the UNOBSERVED sentinel stays where
+    nothing was ever fused); weight = min(w_new, max_weight); with ``obs``,
+    each packed color segment = (c w_old + obs color_gain w_obs) /
+    max(w_old + color_gain w_obs, 1e-6), all as products by the reciprocal.
+    """
+    rows = slots[valid].long()  # valid slots are unique
+    w_old, wo = weight[rows], w_obs[valid]
+    w_new = w_old + wo
+    inv = 1.0 / torch.clamp(w_new, min=1e-6)
+    s_old = sdf[rows]
+    sdf[rows] = torch.where(w_new > 0.0, (s_old * w_old + psi[valid] * wo) * inv, s_old)
+    weight[rows] = torch.clamp(w_new, max=max_weight)
+    if obs is not None:
+        b3 = w_old.shape[1]
+        wc = color_gain * wo
+        inv_c = 1.0 / torch.clamp(w_old + wc, min=1e-6)
+        c_old, o = color[rows], obs[valid]
+        for c in range(3):
+            seg = slice(c * b3, (c + 1) * b3)
+            c_old[:, seg] = (c_old[:, seg] * w_old + o[:, seg] * wc) * inv_c
+        color[rows] = c_old
+
+
+def tsdf_update(sdf, weight, color, slots, valid, psi, w_obs, obs,
+                max_weight, color_gain=1.0):
+    """Running-average update of the listed payload rows, in place.
+
+    sdf, weight f32[C, B^3]; color f32[C, 3 B^3] (packed [r | g | b]);
+    slots i32[K] with valid bool[K] (valid slots unique; invalid entries are
+    never written); psi, w_obs f32[K, B^3] and obs f32[K, 3 B^3] or None
+    (depth only: color is left as it is).
+    """
+    if sdf.device.type == "cpu":
+        tsdf_update_ref(sdf, weight, color, slots, valid, psi, w_obs, obs,
+                        max_weight, color_gain)
+        return
+    dev = sdf.device
+    tensors = dict(sdf=sdf, weight=weight, slots=slots, valid=valid, psi=psi,
+                   w_obs=w_obs)
+    if obs is not None:
+        tensors.update(color=color, obs=obs)
+    _build.check_tensors(tensors, dev)
+    k, b3 = psi.shape
+    if slots.dtype != torch.int32 or valid.dtype != torch.bool:
+        raise ValueError("slots must be int32 and valid bool")
+    if any(t.dtype != torch.float32 for n, t in tensors.items() if n not in ("slots", "valid")):
+        raise ValueError("tsdf_update takes float32 payload and observations")
+    if sdf.shape[1] != b3 or w_obs.shape != psi.shape or slots.shape != (k,):
+        raise ValueError("tsdf_update: observation and payload shapes disagree")
+    if obs is not None and (obs.shape != (k, 3 * b3) or color.shape[1] != 3 * b3):
+        raise ValueError("tsdf_update: color rows must be (., 3 B^3)")
+    p = _build.ptr
+    err = _lib().ifl_tsdf_update(
+        p(slots), p(valid), k, b3, p(sdf), p(weight),
+        p(color) if obs is not None else None, p(psi), p(w_obs),
+        p(obs) if obs is not None else None, max_weight, color_gain,
+        _build.stream_handle(),
+    )
+    _build.check(err, "tsdf_update")
+    tsdf_update.launches += 1
+
+
+tsdf_update.launches = 0

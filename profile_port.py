@@ -26,7 +26,13 @@ on the synthetic orbit, after 3 warm-up frames:
    sentinel and the stamps, on textured frames): N frames of ``slam.step``
    untraced, the stages of part 1 (the intensities inside preprocess, the
    photometric ICP, the splat with color) plus the stamps and the sentinel
-   as stages of their own, and part 2.
+   as stages of their own, and part 2;
+5. the march path (chip_smoke.py's: the bench configuration without splat
+   prediction): parts 0-2 with the map stages touched mask,
+   ``allocate_touched``, touched list, association, K8 and the marched
+   raycast;
+6. the dense path (config1): parts 0-2 with the map stages integrate and
+   raycast.
 
 Prints a table per part, the card's name and power limit, and as its last
 line one JSON object with every number.
@@ -40,16 +46,18 @@ import time
 
 import torch
 
-from chip_smoke import bench_config, card_line, instance_config, rgb_config
+from chip_smoke import (bench_config, card_line, dense_config, instance_config,
+                        march_config, rgb_config)
 
 
 def stages(cfg, state, frame):
     """One frame through slam.step's stages, timed one by one (ms); returns
     (times, the state after the frame).  With the photometric term the
-    intensities are made in the preprocess stage and the splat predicts
-    color; with stamps or the sentinel each is a stage of its own."""
+    intensities are made in the preprocess stage and the prediction has
+    color; with stamps or the sentinel each is a stage of its own.  The map
+    stages follow the map kind (``splat_stages``, ``march_stages``)."""
     from instancefusion_tpu_torch.engine import slam
-    from instancefusion_tpu_torch.ops import blocks, icp, preprocess
+    from instancefusion_tpu_torch.ops import icp, preprocess
     from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
 
     intr, out = cfg.intrinsics, {}
@@ -79,6 +87,28 @@ def stages(cfg, state, frame):
         state.pred_T_wc, intr, cfg.icp, pred_intensity=pred_i))
     T = res.T_wc
     d0 = pyr[0]["depth"]
+    if cfg.map_kind == "blocks" and cfg.raycast.use_splat:
+        vol, pred = splat_stages(cfg, state, frame, T, d0, rgb, timed)
+    else:
+        vol, pred = march_stages(cfg, state, frame, T, d0, rgb, timed)
+    extra = {}
+    if cfg.track_stamps:
+        extra["stamp"] = timed("stamps", lambda: slam._update_stamps(
+            cfg, state.stamp, vol, state.volume.n_active, T, res.valid, state.frame_idx))
+    if cfg.consistency_check:
+        cur, ewma, _, _ = timed("sentinel", lambda: slam._consistency_update(
+            cfg, state, pyr, res, T))
+        extra.update(prev_coarse=cur, drift_ewma=ewma)
+    return out, state._replace(
+        T_wc=T, volume=vol, pred=pred, pred_T_wc=T, T_prev_wc=state.T_wc,
+        frame_idx=state.frame_idx + 1, frame_count=state.frame_count + 1, **extra)
+
+
+def splat_stages(cfg, state, frame, T, d0, rgb, timed):
+    """The splat path's map stages: allocation, slot list, K4, K5."""
+    from instancefusion_tpu_torch.ops import blocks
+
+    intr = cfg.intrinsics
     vol = timed("allocate", lambda: blocks.discover_allocate(
         state.volume, d0, T, intr, cfg.tsdf))
     k = min(cfg.tsdf.touched_capacity, blocks.num_blocks_per_axis(cfg.tsdf) ** 3)
@@ -91,17 +121,40 @@ def stages(cfg, state, frame):
     pred = timed("splat_predict", lambda: blocks.raycast_splat(
         vol, T, intr, cfg.tsdf, slots, valid, with_color=rgb or cfg.raycast.predict_color,
         depth_prior=d0, rmax=cfg.raycast.splat_rmax))
-    extra = {}
-    if cfg.track_stamps:
-        extra["stamp"] = timed("stamps", lambda: slam._update_stamps(
-            cfg, state.stamp, vol, state.volume.n_active, T, res.valid, state.frame_idx))
-    if cfg.consistency_check:
-        cur, ewma, _, _ = timed("sentinel", lambda: slam._consistency_update(
-            cfg, state, pyr, res, T))
-        extra.update(prev_coarse=cur, drift_ewma=ewma)
-    return out, state._replace(
-        T_wc=T, volume=vol, pred=pred, pred_T_wc=T, T_prev_wc=state.T_wc,
-        frame_idx=state.frame_idx + 1, frame_count=state.frame_count + 1, **extra)
+    return vol, pred
+
+
+def march_stages(cfg, state, frame, T, d0, rgb, timed):
+    """The map stages without splat prediction.  The block map: touched
+    mask, ``allocate_touched``, the touched list, the association, K8, the
+    marched raycast; the dense volume: integrate, raycast."""
+    from instancefusion_tpu_torch.ops import blocks, raycast, tsdf
+    from instancefusion_tpu_torch.ops.kernels import tsdf as ktsdf
+
+    intr, tcfg = cfg.intrinsics, cfg.tsdf
+    with_color = rgb or cfg.raycast.predict_color
+    if cfg.map_kind != "blocks":
+        vol = timed("integrate", lambda: tsdf.integrate(state.volume, d0, frame.color, T,
+                                                        intr, tcfg))
+        pred = timed("raycast", lambda: raycast.raycast(vol, T, intr, tcfg, cfg.raycast,
+                                                        with_color=with_color))
+        return vol, pred
+    touched = timed("touched", lambda: blocks.touched_blocks_mask(d0, T, intr, tcfg))
+    vol = timed("allocate_touched", lambda: blocks.allocate_touched(state.volume, touched,
+                                                                    tcfg))
+    k = min(tcfg.touched_capacity, blocks.num_blocks_per_axis(tcfg) ** 3)
+    slots, valid = timed("slot_list", lambda: blocks.compact_touched_slots(vol, touched,
+                                                                           tcfg, k))
+    psi, w_obs, obs = timed("association", lambda: blocks.touched_observations(
+        vol, slots, valid, d0, frame.color, T, intr, tcfg))
+    timed("k8", lambda: ktsdf.tsdf_update(vol.sdf, vol.weight, vol.color, slots, valid,
+                                          psi, w_obs, obs, tcfg.max_weight))
+    prior = torch.where(d0 > 0.0, d0, state.pred.depth)
+    pred = timed("march_raycast", lambda: blocks.raycast(
+        vol, T, intr, tcfg, cfg.raycast, with_color=with_color,
+        depth_prior=prior if cfg.raycast.use_depth_prior else None,
+        screen_space_normals=cfg.raycast.screen_space_normals))
+    return vol, pred
 
 
 def instance_stages(cfg, state, frame, head):
@@ -304,12 +357,24 @@ def main() -> None:
           + ", ".join(f"{k} {v!r}" for k, v in rgb_stage_ms.items())
           + f"; sum without k1 {sum(v for k, v in rgb_stage_ms.items() if k != 'k1')!r}")
     report_profile("slam.step (photometric)", rgb_dev, n)
+    # 5-6. the march path and the dense path.
+    extra = {}
+    for name, pcfg in (("march", march_config()), ("dense", dense_config())):
+        p_step_ms, p_stage_ms, p_dev = path_profile(pcfg, poses[0], frames, warm, n)
+        print(f"untraced slam.step, {name} path: {p_step_ms!r} ms/frame over {n} frames")
+        print(f"{name} stages (median of {n} frames, each synchronized, ms): "
+              + ", ".join(f"{k} {v!r}" for k, v in p_stage_ms.items())
+              + f"; sum without k1 {sum(v for k, v in p_stage_ms.items() if k != 'k1')!r}")
+        report_profile(f"slam.step ({name})", p_dev, n)
+        extra.update({f"{name}_step_ms": p_step_ms, f"{name}_stage_ms": p_stage_ms,
+                      f"{name}_step_profile": p_dev})
     print(card)
     print(json.dumps({
         "card": card, "frames": n, "step_ms": step_ms, "stage_ms": stage_ms,
         "step_seg_ms": seg_step_ms, "instance_stage_ms": inst_ms, "head_ms": head_ms,
         "step_profile": main_dev, "step_seg_profile": inst_dev,
         "rgb_step_ms": rgb_step_ms, "rgb_stage_ms": rgb_stage_ms, "rgb_step_profile": rgb_dev,
+        **extra,
     }))
 
 

@@ -1,14 +1,19 @@
-"""Port block map (allocation, slot lists, integrate K4, splat K5) against
-the reference's jnp path on the CPU (the CUDA kernels:
-tests/test_torch_kernels.py)."""
+"""Port block map (allocation, slot lists, integrate K4, splat K5, the
+touched-block integrate with K8, clean) against the reference's jnp path
+on the CPU (the CUDA kernels: tests/test_torch_kernels.py)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from instancefusion_tpu.datasets import synthetic as jsyn
 from instancefusion_tpu.ops import blocks as jblk
+from instancefusion_tpu.ops import labels as jlab
 from instancefusion_tpu_torch.ops import blocks as pblk
+from instancefusion_tpu_torch.ops import labels as plab
 from tests.helpers import SMALL_INTR
 from tests.torch_helpers import BLOCKS_TSDF, RMAX, n, t, to_port
 
@@ -122,3 +127,118 @@ def test_pack_unpack_color_match_reference():
     packed = pblk.pack_color(t(c3))
     np.testing.assert_array_equal(n(packed), np.asarray(jblk.pack_color(c3)))
     np.testing.assert_array_equal(n(pblk.unpack_color(packed)), c3)
+
+
+@pytest.fixture(scope="module")
+def touched_runs():
+    """Two frames through the touched-block ``integrate``: the reference's
+    jnp branch, its K8 branch (``use_pallas``, interpret mode on the CPU),
+    and the port (plain K8), each from an empty map; and the frames."""
+    poses = jsyn.orbit_trajectory(20)
+    frames = [jsyn.render_frame(poses[i], SMALL_INTR) for i in (0, 3)]
+    k8_cfg = dataclasses.replace(BLOCKS_TSDF, use_pallas=True)
+    refs = {}
+    for name, cfg in (("jnp", BLOCKS_TSDF), ("k8", k8_cfg)):
+        fuse = jax.jit(jblk.integrate, static_argnums=(4, 5))
+        bm = jblk.allocate(BLOCKS_TSDF)
+        for f in frames:
+            bm = fuse(bm, f.depth, f.color, f.T_wc, SMALL_INTR, cfg)
+        refs[name] = bm
+    out = pblk.allocate(PCFG, "cpu")
+    for f in frames:
+        out = pblk.integrate(out, t(f.depth), t(f.color), t(f.T_wc), PINTR, PCFG)
+    frames = [(np.asarray(f.depth), np.asarray(f.color), np.asarray(f.T_wc)) for f in frames]
+    return refs, out, frames
+
+
+@pytest.mark.parametrize("branch", ["jnp", "k8"])
+def test_touched_integrate_matches_reference(touched_runs, branch):
+    """Directory, coordinates, n_active and overflow equal; sdf within 5e-4,
+    weight within 1e-5 and color within 5e-3 (tests/test_pallas.py:218-223)
+    on >= 99.9% of voxels (the XLA-fused voxel centers can round a
+    projection on a .5 pixel boundary apart)."""
+    refs, out, _ = touched_runs
+    ref = refs[branch]
+    for name in ("directory", "block_coords", "n_active", "overflow"):
+        np.testing.assert_array_equal(n(getattr(out, name)),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    assert int(ref.n_active) > 100
+    for name, tol in (("sdf", 5e-4), ("weight", 1e-5), ("color", 5e-3)):
+        share = _voxel_share(n(getattr(out, name)), np.asarray(getattr(ref, name)), tol)
+        assert share >= 0.999, (name, share)
+    w = n(out.weight)
+    assert (w > 0).sum() > 10000
+    # Never-fused voxels of allocated blocks keep the sentinel.
+    live = np.arange(w.shape[0]) < int(out.n_active)
+    assert (n(out.sdf)[live][w[live] == 0] == pblk.UNOBSERVED).all()
+
+
+def test_touched_integrate_matches_k4_on_the_same_rows(touched_runs):
+    """The association in PyTorch plus K8 against K4 (plain), which does
+    both in one pass, on the same touched list of the second frame: sdf,
+    weight and color within 1e-6 (K8 multiplies by the reciprocal of the
+    weight, K4 divides by it); allocation as ``allocate_touched``."""
+    _, _, frames = touched_runs
+    (d0, c0, T0), (d1, c1, T1) = frames
+    first = pblk.integrate(pblk.allocate(PCFG, "cpu"), t(d0), t(c0), t(T0), PINTR, PCFG)
+    touched = pblk.touched_blocks_mask(t(d1), t(T1), PINTR, PCFG)
+    bm = pblk.allocate_touched(first, touched, PCFG)
+    slots, valid = pblk.compact_touched_slots(bm, touched, PCFG, PCFG.touched_capacity)
+    assert int(valid.sum()) > 50 and bool((slots[~valid] == 0).all())
+    k4 = pblk.BlockMap(*(x.clone() for x in bm))
+    pblk.integrate_slots(k4, slots, valid, t(d1), t(c1), t(T1), PINTR, PCFG)
+    k8 = pblk.integrate(pblk.BlockMap(*(x.clone() for x in first)), t(d1), t(c1), t(T1),
+                        PINTR, PCFG)
+    for name in ("directory", "block_coords", "n_active", "overflow"):
+        assert torch.equal(getattr(k8, name), getattr(bm, name)), name
+    for name in ("sdf", "weight", "color"):
+        np.testing.assert_allclose(n(getattr(k8, name)), n(getattr(k4, name)),
+                                   rtol=0, atol=1e-6, err_msg=name)
+
+
+def test_allocate_touched_matches_reference(touched_runs):
+    """On a map that already holds blocks, with a capacity that drops some:
+    directory, coordinates, n_active and overflow equal."""
+    refs, _, frames = touched_runs
+    depth, _, T = frames[1]
+    cap = int(refs["jnp"].n_active) + 40
+    small = dataclasses.replace(BLOCKS_TSDF, table_capacity=cap)
+    # The map cut to that capacity: its rows past n_active are all free.
+    ref_bm = refs["jnp"]._replace(**{name: getattr(refs["jnp"], name)[:cap] for name in
+                                     ("block_coords", "sdf", "weight", "color")})
+    # Move the frame so that it touches new blocks.
+    shift = np.eye(4, dtype=np.float32)
+    shift[:3, 3] = (0.3, 0.0, 0.2)
+    touched = jblk.touched_blocks_mask(depth, shift @ T, SMALL_INTR, BLOCKS_TSDF)
+    ref = jblk.allocate_touched(ref_bm, touched, small)
+    out = pblk.allocate_touched(_port_map(ref_bm), t(touched), to_port(small))
+    assert int(ref.overflow) > int(ref_bm.overflow)  # some blocks were dropped
+    for name in ("directory", "block_coords", "n_active", "overflow"):
+        np.testing.assert_array_equal(n(getattr(out, name)),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+
+
+def test_clean_matches_reference(touched_runs):
+    """Culled and compacted map, votes and stamps equal (exact): live rows
+    first in their old order, the fills behind them, the directory
+    remapped."""
+    refs, _, _ = touched_runs
+    bm = refs["jnp"]
+    rng = np.random.default_rng(5)
+    c = BLOCKS_TSDF.table_capacity
+    votes = (rng.integers(-1, 6, (c, 512)).astype(np.int32),
+             rng.uniform(0, 4, (c, 512)).astype(np.float32))
+    stamp = rng.integers(0, 9, (c, 2)).astype(np.int32)
+    ref_bm, ref_votes, ref_stamp = jblk.clean(bm, BLOCKS_TSDF, 2.0,
+                                              jlab.LabelVotes(*votes), stamp)
+    out_bm, out_votes, out_stamp = pblk.clean(_port_map(bm), PCFG, 2.0,
+                                              plab.LabelVotes(*(t(x) for x in votes)),
+                                              t(stamp))
+    assert 0 < int(ref_bm.n_active) < int(bm.n_active)  # some blocks were culled
+    for a, b in zip(out_bm, ref_bm):
+        np.testing.assert_array_equal(n(a), np.asarray(b))
+    for a, b in zip(out_votes, ref_votes):
+        np.testing.assert_array_equal(n(a), np.asarray(b))
+    np.testing.assert_array_equal(n(out_stamp), np.asarray(ref_stamp))
+    out2, none = pblk.clean(_port_map(bm), PCFG)
+    assert none is None and int(out2.n_active) >= int(out_bm.n_active)

@@ -98,19 +98,28 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
-    """The dense map and sharded maps are not ported: they raise.  The
-    photometric term, the stamps and the sentinel run (test_torch_slam.py)."""
+    """Sharded maps are not ported: they raise.  The dense map and the
+    block map without splat prediction start (test_torch_slam_dense.py);
+    instances and stamps on the dense map raise the reference's ValueError.
+    The photometric term, the stamps and the sentinel run
+    (test_torch_slam.py)."""
     cfg = to_port(jcfg.config2_tum_fr3_long_office())
-    for change in (dict(map_kind="dense"), dict(map_kind="dense", use_instances=True),
-                   dict(num_shards=2), dict(num_shards=4, track_stamps=True)):
+    for change in (dict(num_shards=2), dict(num_shards=4, track_stamps=True),
+                   dict(map_kind="dense", num_shards=2)):
         with pytest.raises(NotImplementedError):
             slam.init_state(dataclasses.replace(cfg, **change), device="cpu")
+    for change in (dict(use_instances=True), dict(track_stamps=True)):
+        with pytest.raises(ValueError, match="map_kind='blocks'"):
+            slam.init_state(dataclasses.replace(to_port(jcfg.config1_tum_fr1_desk()),
+                                                **change), device="cpu")
     small = to_port(blocks_cfg())
     ported = dataclasses.replace(small, track_stamps=True, consistency_check=True,
                                  icp=dataclasses.replace(small.icp, rgb_weight=0.1))
     state = slam.init_state(ported, device="cpu")
     assert state.stamp.shape == (small.tsdf.table_capacity, 2)
     assert state.drift_ewma.shape == (3,) and len(state.prev_coarse) == 3
+    dense = slam.init_state(dataclasses.replace(small, map_kind="dense"), device="cpu")
+    assert dense.volume.sdf.shape == (small.tsdf.grid_size,) * 3
 
 
 def test_association_rounds_per_frame():

@@ -71,7 +71,7 @@ def test_main_path_launches_every_kernel(run):
     _, _, launches = run
     rounds = sum(icp.level_schedule(CFG.icp, lvl)[1] for lvl in range(CFG.icp.levels))
     assert launches == {"K1": 4, "K2": 4 * rounds, "K3": 4 * rounds, "K4": 4,
-                        "K5": 4, "K6": 0, "K7": 2}
+                        "K5": 4, "K6": 0, "K7": 2, "K8": 0}
 
 
 def _level0(state, frame):
@@ -336,6 +336,12 @@ def test_plain_versions_launch_nothing(rgb_run):
         rgb=(src["intensity"].reshape(-1), i_t, gx_t, gy_t, ok.float()),
         T_pred_cw=T_cw, rgb_intr=(CFG.intrinsics.fx, CFG.intrinsics.fy), rgb_weight=0.1)
     kicp.normal_equations_ref(q, n_t, q, ok.float(), 0.0)
+    vol = state.volume
+    slots, valid = blocks.frustum_slots(vol, state.T_wc, CFG.intrinsics, CFG.tsdf, 0.2, 4.0, K)
+    psi, w_obs, obs = blocks.touched_observations(vol, slots, valid, frame.depth, frame.color,
+                                                  frame.T_wc, CFG.intrinsics, CFG.tsdf)
+    ktsdf.tsdf_update_ref(vol.sdf.clone(), vol.weight.clone(), vol.color.clone(), slots,
+                          valid, psi, w_obs, obs, CFG.tsdf.max_weight)
     torch.cuda.synchronize()
     assert counts == {k: fn.launches for k, fn in kernels.wrappers().items()}
 
@@ -353,3 +359,91 @@ def test_rgb_step_makes_no_host_sync(rgb_run):
         torch.cuda.set_sync_debug_mode("default")
     assert bool(info.track_ok) and not bool(info.drift_alarm)
     assert int(state.stamp[:, 0].max()) == int(state.frame_idx)
+
+
+# The block map without splat prediction (the touched-block integrate with
+# K8, then the marched raycast) and the dense volume, at the same scale.
+CFG_MARCH = dataclasses.replace(CFG, use_instances=False,
+                                raycast=dataclasses.replace(CFG.raycast, use_splat=False))
+CFG_DENSE = dataclasses.replace(
+    CFG_MARCH, map_kind="dense",
+    tsdf=TsdfConfig(voxel_size=0.04, trunc=0.12, grid_size=96, origin=(-1.92, -1.92, -0.4)))
+
+
+@pytest.fixture(scope="module")
+def march_run():
+    """Four frames of the march path on the card, and the next frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only on the GPU")
+    poses = synthetic.orbit_trajectory(12)
+    frames = [synthetic.render_frame(poses[i], CFG.intrinsics) for i in range(5)]
+    kernels.reset_launches()
+    state = slam.init_state(CFG_MARCH, poses[0])
+    for f in frames[:4]:
+        state, info = slam.step(CFG_MARCH, state, f.depth, f.color)
+        assert bool(info.track_ok)
+    launches = {k: fn.launches for k, fn in kernels.wrappers().items()}
+    return state, frames[4], launches, poses
+
+
+def test_march_path_launches(march_run):
+    """K8 once a frame; K4 and K5 (the splat path's) never."""
+    _, _, launches, _ = march_run
+    rounds = sum(icp.level_schedule(CFG.icp, lvl)[1] for lvl in range(CFG.icp.levels))
+    assert launches == {"K1": 4, "K2": 4 * rounds, "K3": 4 * rounds, "K4": 0,
+                        "K5": 0, "K6": 0, "K7": 0, "K8": 4}
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_tsdf_update_kernel_matches_plain(march_run, with_color):
+    """On the next frame's touched list: the listed rows within sdf and
+    color rtol 1e-5 atol 1e-6, weight rtol 1e-6 (tests/test_pallas.py's
+    bounds); every other row, and color without color, bit-identical."""
+    state, frame, _, _ = march_run
+    touched = blocks.touched_blocks_mask(frame.depth, frame.T_wc, CFG.intrinsics, CFG.tsdf)
+    vol = blocks.allocate_touched(state.volume, touched, CFG.tsdf)
+    slots, valid = blocks.compact_touched_slots(vol, touched, CFG.tsdf,
+                                                CFG.tsdf.touched_capacity)
+    psi, w_obs, obs = blocks.touched_observations(
+        vol, slots, valid, frame.depth, frame.color if with_color else None, frame.T_wc,
+        CFG.intrinsics, CFG.tsdf)
+    maps_k = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
+    maps_r = [x.clone() for x in maps_k]
+    args = (slots, valid, psi, w_obs, obs, CFG.tsdf.max_weight)
+    before = ktsdf.tsdf_update.launches
+    ktsdf.tsdf_update(*maps_k, *args)
+    ktsdf.tsdf_update_ref(*maps_r, *args)
+    assert ktsdf.tsdf_update.launches == before + 1
+    rows = torch.zeros(vol.sdf.shape[0], dtype=torch.bool, device="cuda")
+    rows[slots[valid].long()] = True
+    assert int(rows.sum()) > 50 and not torch.equal(maps_k[1], vol.weight)
+    torch.testing.assert_close(maps_k[0], maps_r[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(maps_k[1], maps_r[1], rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(maps_k[2], maps_r[2], rtol=1e-5, atol=1e-6)
+    for a, b in zip(maps_k, (vol.sdf, vol.weight, vol.color)):
+        assert torch.equal(a[~rows], b[~rows])
+    if not with_color:
+        assert torch.equal(maps_k[2], vol.color)
+
+
+@pytest.mark.parametrize("kind", ["march", "dense"])
+def test_march_and_dense_steps_make_no_host_sync(march_run, kind):
+    """The march path and the dense path never wait for the device."""
+    state, frame, _, poses = march_run
+    cfg = CFG_MARCH
+    if kind == "dense":
+        cfg = CFG_DENSE
+        state = slam.init_state(cfg, poses[0])
+        for i in range(4):
+            f = synthetic.render_frame(poses[i], cfg.intrinsics)
+            state, _ = slam.step(cfg, state, f.depth, f.color)
+    else:
+        vol = state.volume
+        state = state._replace(volume=vol._replace(
+            sdf=vol.sdf.clone(), weight=vol.weight.clone(), color=vol.color.clone()))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, info = slam.step(cfg, state, frame.depth, frame.color)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(info.track_ok) and int(state.pred.valid.sum()) > 3000

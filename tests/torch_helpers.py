@@ -16,6 +16,7 @@ from types import SimpleNamespace
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from instancefusion_tpu.config import RaycastConfig
@@ -98,3 +99,34 @@ def pose_error(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     chord = np.linalg.norm(a[:3, :3] - b[:3, :3]) / (2.0 * np.sqrt(2.0))
     return np.abs(a[:3, 3] - b[:3, 3]).max(), 2.0 * np.arcsin(min(chord, 1.0))
+
+
+def sample_points(seed: int, near: np.ndarray, m: int = 4000) -> np.ndarray:
+    """Points within a voxel of the given observed points `near` (N, 3),
+    anywhere inside the volume, and outside it (the volume spans
+    [-1.92, 1.92]^2 x [-0.4, 3.44])."""
+    rng = np.random.default_rng(seed)
+    pick = near[rng.integers(0, len(near), m)]
+    return np.concatenate([
+        pick + rng.uniform(-0.04, 0.04, (m, 3)),
+        rng.uniform([-1.9, -1.9, -0.38], [1.9, 1.9, 3.4], (m, 3)),
+        rng.uniform(-4.0, 5.0, (m // 4, 3)),
+    ]).astype(np.float32)
+
+
+def observed_points(weight: np.ndarray, origin, voxel: float) -> np.ndarray:
+    """World centers of the voxels with weight > 0."""
+    return np.argwhere(weight > 0) * voxel + np.asarray(origin) + 0.5 * voxel
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Run a module's port code on one CPU thread, restoring the count
+    after: the reference's (XLA's) threads and the test workers already
+    share the cores, and one thread sums in the reference's order (the
+    dense engine's ICP amplifies a reordered sum: test_torch_slam_dense.py).
+    Autouse in every module that imports it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
