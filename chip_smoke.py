@@ -44,12 +44,15 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    twist; the last frame's ``localloop.attempt`` must pull the pose back to
    the tracked one, and ``reset_gaps`` must consume the evidence;
 9. each kernel against its plain PyTorch version, on inputs taken from the
-   port's own state at those configurations, with times of the kernel, the
+   port's own state at those configurations, with times of the kernel (its
+   call time by CUDA events and its device time by ``torch.profiler``), the
    plain version and, where one PyTorch call does the same work, that call
-   (K2 and K3 with the photometric planes, K5 with color, K6, and K8 on the
-   march path's last state and the next frame's association, with and
-   without color, among them; no kernel may launch while a plain version is
-   timed);
+   (K2, the whole association of a level, exactly at levels 0-2 with and
+   without the photometric planes, beside the parent's split association;
+   K3 with the photometric planes, K5 with color and its route counts, K6,
+   and K8 on the march path's last state and the next frame's association,
+   with and without color, among them; no kernel may launch while a plain
+   version is timed);
 10. the packaged segmentation head at 640x480 on the card, held against the
    same head on the CPU: outputs, the grouping of the same outputs, and the
    whole segmentation on frames whose grouping does not hinge on tied
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -117,7 +121,8 @@ HEAD_FRAMES = 3
 HEAD_EPS, HEAD_TRIALS = 2e-5, 3
 REPLACES = {
     "K1": "instancefusion_tpu/ops/pallas/preprocess.py:123 fused_preprocess",
-    "K2": "instancefusion_tpu/ops/pallas/icp.py:218 gather_target_maps",
+    "K2": "instancefusion_tpu/ops/pallas/icp.py:218 gather_target_maps (with the jnp "
+          "association around it, instancefusion_tpu/ops/icp.py:48 associate)",
     "K3": "instancefusion_tpu/ops/pallas/icp.py:565 gn_iterations",
     "K4": "instancefusion_tpu/ops/pallas/tsdf.py:356 fused_integrate_groups "
           "(and :252 fused_integrate)",
@@ -125,7 +130,8 @@ REPLACES = {
           "(and :581 splat_depth)",
     "K7": "instancefusion_tpu/ops/pallas/tsdf.py:478 fused_label_vote",
     "K2rgb": "instancefusion_tpu/ops/pallas/icp.py:218 gather_target_maps "
-             "(tgt_rgb planes, :137-151, :187-196)",
+             "(tgt_rgb planes, :137-151, :187-196; with the jnp association, "
+             "instancefusion_tpu/ops/icp.py:48 associate)",
     "K3rgb": "instancefusion_tpu/ops/pallas/icp.py:565 gn_iterations "
              "(rgb sums and trust-fraction combine, :388-434, :449-466)",
     "K6": "instancefusion_tpu/ops/pallas/icp.py:652 reduce_normal_equations",
@@ -144,9 +150,18 @@ SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
            "K6": "instancefusion_tpu_torch/csrc/icp.cu",
            "K5color": "instancefusion_tpu_torch/csrc/raycast.cu",
            "K8": "instancefusion_tpu_torch/csrc/tsdf.cu"}
-NAMES = {"K1": "fused_preprocess", "K2": "gather_target_maps",
+# The __global__ functions of each kernel, whose device time the profiler
+# sums for the kernel's device_ms.
+DEVICE_KERNELS = {"K1": ("preprocess_kernel",), "K2": ("associate_kernel",),
+                  "K2rgb": ("associate_kernel",),
+                  "K3": ("gn_reduce_kernel", "gn_solve_kernel"),
+                  "K3rgb": ("gn_reduce_kernel", "gn_solve_kernel"),
+                  "K4": ("integrate_kernel",), "K5": ("splat_kernel",),
+                  "K5color": ("splat_kernel",), "K6": ("ne_reduce_kernel", "ne_finish_kernel"),
+                  "K7": ("label_vote_kernel",), "K8": ("tsdf_update_kernel",)}
+NAMES = {"K1": "fused_preprocess", "K2": "associate_gather",
          "K3": "gn_iterations", "K4": "integrate", "K5": "splat_planes",
-         "K7": "label_vote", "K2rgb": "gather_target_maps[rgb]",
+         "K7": "label_vote", "K2rgb": "associate_gather[rgb]",
          "K3rgb": "gn_iterations[rgb]", "K6": "normal_equations",
          "K5color": "splat_planes[color]", "K8": "tsdf_update"}
 
@@ -538,15 +553,38 @@ def n_distinct(pix, mask) -> int:
     return int(torch.unique(pix[mask]).numel())
 
 
-def record(k, launches, err, ms, plain_ms, n_bytes, n_flops, library_ms, note):
+def kernel_times(k, fn, reps: int):
+    """A kernel's call time (``time_ms``: stream time per call, host gaps
+    included) and its device time per call: ``torch.profiler``'s device
+    time of the kernel's ``__global__`` functions (DEVICE_KERNELS) over
+    `reps` more calls.  Their difference is the host's share of a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    pattern = re.compile(r"\b(" + "|".join(DEVICE_KERNELS[k]) + r")\b")
+    dev_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and pattern.search(ev.key))
+    check(dev_us > 0.0, f"{k}: the profiler saw no device time of {DEVICE_KERNELS[k]}")
+    return ms, dev_us / 1e3 / reps
+
+
+def record(k, launches, err, times, plain_ms, n_bytes, n_flops, library_ms, note):
+    """A kernel's record; `times` is ``kernel_times``' (call ms, device ms)."""
+    ms, dev_ms = times
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     rec = {"name": NAMES[k], "route": "cuda", "source": SOURCES[k],
            "replaces": REPLACES[k], "launches": launches[k],
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
-    print(f"{k} {NAMES[k]}: kernel_ms {ms!r} plain_ms {plain_ms!r} library_ms "
-          f"{library_ms!r} bound_ms {b_ms!r} ({b_by}) max_abs_err {err!r}; {note}",
-          flush=True)
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+           "device_ms": dev_ms}
+    print(f"{k} {NAMES[k]}: kernel_ms {ms!r} device_ms {dev_ms!r} plain_ms {plain_ms!r} "
+          f"library_ms {library_ms!r} bound_ms {b_ms!r} ({b_by}) max_abs_err {err!r}; "
+          f"{note}", flush=True)
     return rec
 
 
@@ -592,25 +630,123 @@ def splat_record(k, cfg, slots, valid, coords, maps, T, d0, with_color, launches
     acc = torch.zeros((nch, hw), device=planes_k.device)
     del taps
     n_valid = int(valid.sum())
+    routes = kray.splat_routes(slots, valid, coords, T, intr, cfg.tsdf, with_color, rmax)
+    print(f"{k} routes of the {n_valid} valid listed blocks: {routes['tile']} on the "
+          f"shared-memory tile ({kray.SPLAT_TILE_BYTES} B budget), {routes['global']} "
+          f"straight to the global planes, {routes['dropped']} dropped (straddling the "
+          f"camera plane)", flush=True)
     return record(
         k, launches, err,
-        time_ms(lambda: kray.splat_planes(*sargs), 50),
+        kernel_times(k, lambda: kray.splat_planes(*sargs), 50),
         plain_time_ms(lambda: kray.splat_planes_ref(*sargs), 5),
         slots.shape[0] * 5 + n_valid * 12 + n_valid * b3 * 4 * (2 + (3 if with_color else 0))
         + nch * hw * 4,
         n_taps * (2.0 * nch + 8.0),
         time_ms(lambda: acc.index_add_(1, flat_all, contrib_all), 20),
-        f"K={slots.shape[0]} listed, {n_valid} valid slots, rmax={rmax}, {n_taps} tent "
-        f"taps, {nch} planes; valid XOR {xor} of {n_vr}, plane max rel err {rel}; {note}"
+        f"K={slots.shape[0]} listed, {n_valid} valid slots (routes {routes}), rmax={rmax}, "
+        f"{n_taps} tent taps, {nch} planes; valid XOR {xor} of {n_vr}, plane max rel err "
+        f"{rel}; {note}"
         f"tolerance: valid XOR < 1%, depth < 1e-3 m where both valid; library = one "
         f"index_add_ of the precomputed taps",
+    )
+
+
+def association_levels(cfg, state, pyr, rgb: bool):
+    """K2's arguments at each level of the source pyramid `pyr` against the
+    state's prediction: the level's source maps, the state's pose and
+    prediction view, the level's intrinsics, the full-resolution
+    prediction, the stride and, with `rgb`, the level's photometric planes
+    (the prediction's intensity decimated, with its gradients)."""
+    from instancefusion_tpu_torch.geometry.se3 import se3_inverse
+    from instancefusion_tpu_torch.ops import icp, preprocess
+    from instancefusion_tpu_torch.ops.common import decimate
+
+    pred = state.pred
+    T_cw = se3_inverse(state.pred_T_wc)
+    tgt = [x.contiguous() for x in (pred.vertex_w, pred.normal_w, pred.valid)]
+    out = []
+    for lvl, src in enumerate(pyr):
+        planes = None
+        if rgb:
+            ti = decimate(preprocess.rgb_to_intensity(pred.color), 1 << lvl).contiguous()
+            planes = (ti, *icp.intensity_gradients(ti))
+        out.append((src["vmap"].reshape(-1, 3).contiguous(),
+                    src["valid"].reshape(-1).contiguous(), state.T_wc.contiguous(), T_cw,
+                    cfg.intrinsics.level(lvl), *tgt, 1 << lvl, planes))
+    return out
+
+
+def split_association(src_v, src_ok, T_wc, T_cw, intr, tv, tn, tval, stride, planes):
+    """One association as the parent tree ran it, device op by device op:
+    the two ``transform_points`` products, the projection, the rounding and
+    the in-image test, the decimated target copies, the gather and the K3
+    gate.  The gather is the plain one here (its CUDA route is gone)."""
+    from instancefusion_tpu_torch.geometry.camera import project
+    from instancefusion_tpu_torch.geometry.se3 import transform_points
+    from instancefusion_tpu_torch.ops.common import decimate
+    from instancefusion_tpu_torch.ops.kernels import icp as kicp
+
+    u, v, z = project(intr, transform_points(T_cw, transform_points(T_wc, src_v)))
+    uf, vf = torch.ceil(u - 0.5), torch.ceil(v - 0.5)
+    sel = src_ok & (uf >= 0) & (uf < intr.width) & (vf >= 0) & (vf < intr.height) & (z > 0.0)
+    tgt = [decimate(x, stride).contiguous() for x in (tv, tn, tval)]
+    out = kicp.gather_target_maps_ref(u.contiguous(), v.contiguous(), sel, *tgt, planes)
+    return out, (src_ok & out[2]).float()
+
+
+def association_record(k, levels, launches):
+    """K2 (fused association) against its plain version at every level of
+    `levels` (``association_levels``): every output equal, bit for bit.
+    Timed at level 0 with its library yardstick (the gather alone, by
+    precomputed flat indices into a (HW, 7 or 10) table, as in PRs 1-4);
+    each level's call time beside the parent's split association there."""
+    from instancefusion_tpu_torch.ops.kernels import icp as kicp
+
+    per_level = []
+    for lvl, args in enumerate(levels):
+        out, ref = kicp.associate_gather(*args), kicp.associate_gather_ref(*args)
+        pairs = list(zip(out[:4], ref[:4])) + (list(zip(out.rgb, ref.rgb)) if out.rgb else [])
+        n_diff = sum(int((a != b).sum()) for a, b in pairs)
+        check(n_diff == 0, f"{k} level {lvl}: {n_diff} values differ from the plain version "
+                           f"({int((out.ok != ref.ok).sum())} ok)")
+        per_level.append((lvl, int(out.ok.numel()), int(out.ok.sum()),
+                          time_ms(lambda: kicp.associate_gather(*args), 200),
+                          plain_time_ms(lambda: split_association(*args), 50)))
+    args = levels[0]
+    src_v, _, _, _, intr, tv, tn, tval, _, planes = args
+    out = kicp.associate_gather(*args)
+    n, hw = src_v.shape[0], intr.height * intr.width
+    u, v, _ = kicp.association_inputs(src_v, args[1], args[2], args[3], intr)
+    flat = (torch.ceil(v - 0.5).clamp(0, intr.height - 1).long() * intr.width
+            + torch.ceil(u - 0.5).clamp(0, intr.width - 1).long())
+    nplanes = 0 if planes is None else 3
+    table = torch.cat([tv.reshape(-1, 3), tn.reshape(-1, 3), tval.reshape(-1, 1).float()]
+                      + ([] if planes is None else [p.reshape(-1, 1) for p in planes]), 1)
+    # Bytes: source vertex and validity, the two poses, each distinct target
+    # pixel's vertex, normal and validity (and planes), the outputs q, n_t,
+    # gate, ok (and the gathered planes).
+    n_bytes = n * 13 + 128 + n_distinct(flat, flat >= 0) * (25 + 4 * nplanes) \
+        + n * (29 + 4 * nplanes)
+    levels_note = "; ".join(
+        f"level {lvl}: N={npx}, {nok} associated, kernel {ms!r} ms, parent's split path "
+        f"{split!r} ms" for lvl, npx, nok, ms, split in per_level)
+    return record(
+        k, launches, 0.0,
+        kernel_times(k, lambda: kicp.associate_gather(*args), 200),
+        plain_time_ms(lambda: kicp.associate_gather_ref(*args), 50),
+        n_bytes, 0.0, time_ms(lambda: table[flat], 200),
+        f"target {intr.height}x{intr.width}{', 3 photometric planes' if planes else ''}; "
+        f"levels 0-{len(levels) - 1} bit-identical to the plain version (0 differing "
+        f"values, 0 differing ok); {levels_note}; split path = transform_points x2, "
+        f"projection, in-image test, decimated .contiguous() copies, plain gather, gate "
+        f"(the parent's association with the gather plain); library = advanced indexing "
+        f"of a (HW, {7 + nplanes}) target table by precomputed flat indices",
     )
 
 
 def kernel_phase(cfg, state, frame, launches):
     """Each kernel against its plain version on inputs from the port's state
     after the main path and one more frame; returns the kernel records."""
-    from instancefusion_tpu_torch.geometry.se3 import se3_inverse
     from instancefusion_tpu_torch.ops import blocks, icp, preprocess
     from instancefusion_tpu_torch.ops.kernels import icp as kicp
     from instancefusion_tpu_torch.ops.kernels import tsdf as ktsdf
@@ -620,37 +756,19 @@ def kernel_phase(cfg, state, frame, launches):
     src = pyr[0]
     recs = []
 
-    # K2 at level 0 (640x480), from the last pose against the last prediction.
-    pred = state.pred
-    u, v, sel = icp.association_inputs(src["vmap"], src["valid"], state.T_wc,
-                                       se3_inverse(state.pred_T_wc), intr)
-    targets = (pred.vertex_w.contiguous(), pred.normal_w.contiguous(), pred.valid.contiguous())
-    q_k, n_k, ok_k = kicp.gather_target_maps(u, v, sel, *targets)
-    q_r, n_r, ok_r = kicp.gather_target_maps_ref(u, v, sel, *targets)
-    err = max((q_k - q_r).abs().max().item(), (n_k - n_r).abs().max().item())
-    mism = int((ok_k != ok_r).sum())
-    check(err == 0.0 and mism == 0, f"K2 differs from its plain version: {err}, {mism}")
-    n, hw = u.shape[0], intr.height * intr.width
-    flat = (torch.ceil(v - 0.5).clamp(0, intr.height - 1).long() * intr.width
-            + torch.ceil(u - 0.5).clamp(0, intr.width - 1).long())
-    table = torch.cat([targets[0].reshape(-1, 3), targets[1].reshape(-1, 3),
-                       targets[2].reshape(-1, 1).float()], 1)
-    recs.append(record(
-        "K2", launches, err,
-        time_ms(lambda: kicp.gather_target_maps(u, v, sel, *targets), 200),
-        time_ms(lambda: kicp.gather_target_maps_ref(u, v, sel, *targets), 50),
-        n * 9 + hw * 25 + n * 25, 0.0,
-        time_ms(lambda: table[flat], 200),
-        f"N={n} pixels, target {intr.height}x{intr.width}; tolerance: exact "
-        f"(bit-identical gather); library = advanced indexing of a (HW, 7) "
-        f"target table by precomputed flat indices",
-    ))
+    # K2 at levels 0-2 from the last pose against the last prediction,
+    # timed at level 0 (640x480).
+    levels = association_levels(cfg, state, pyr, rgb=False)
+    recs.append(association_record("K2", levels, launches))
+    a = kicp.associate_gather(*levels[0])
+    q_k, n_k, ok_k = a.q_w, a.n_t, a.ok
 
     # K3 at level 0 on those correspondences.
     inner_n, _ = icp.level_schedule(cfg.icp, 0)
     gate = (src["valid"].reshape(-1) & ok_k).float()
     src_v = src["vmap"].reshape(-1, 3).contiguous()
     src_n = src["nmap"].reshape(-1, 3).contiguous()
+    n = src_v.shape[0]
     kw = dict(inner_n=inner_n, dist_thresh=cfg.icp.dist_thresh,
               angle_thresh=cfg.icp.angle_thresh, huber_delta=cfg.icp.huber_delta,
               damping=cfg.icp.damping, min_valid=cfg.icp.min_valid)
@@ -665,7 +783,7 @@ def kernel_phase(cfg, state, frame, launches):
     n_gate = float(gate.sum())
     recs.append(record(
         "K3", launches, err,
-        time_ms(lambda: kicp.gn_iterations(*args, **kw), 200),
+        kernel_times("K3", lambda: kicp.gn_iterations(*args, **kw), 200),
         plain_time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
         n * (4 * 12 + 4) + 64 + 72, GN_FLOPS_PER_PIXEL * n_gate * inner_n, None,
         f"N={n}, {n_gate} gated, inner_n={inner_n}, inliers {nin_k} vs {nin_r}, "
@@ -705,7 +823,7 @@ def kernel_phase(cfg, state, frame, launches):
     bench_maps = [m.clone() for m in maps_k]
     recs.append(record(
         "K4", launches, max(errs),
-        time_ms(lambda: ktsdf.integrate(vol.block_coords, *bench_maps, *integ), 100),
+        kernel_times("K4", lambda: ktsdf.integrate(vol.block_coords, *bench_maps, *integ), 100),
         time_ms(lambda: ktsdf.integrate_ref(vol.block_coords, *bench_maps, *integ), 10),
         k4_bytes, 40.0 * n_valid * b3, None,
         f"K={k} listed, {n_valid} valid slots x {b3} voxels, {n_fused} fuse, color "
@@ -729,47 +847,25 @@ def rgb_kernel_phase(cfg, state, frame, last, launches):
     from instancefusion_tpu_torch.ops.kernels import icp as kicp
 
     intr, icfg = cfg.intrinsics, cfg.icp
-    src = preprocess.build_frame_pyramid(frame.depth, intr, cfg.preprocess, 1,
-                                         preprocess.rgb_to_intensity(frame.color))[0]
-    pred = state.pred
+    pyr = preprocess.build_frame_pyramid(frame.depth, intr, cfg.preprocess, icfg.levels,
+                                         preprocess.rgb_to_intensity(frame.color))
+    src = pyr[0]
     T_cw = se3_inverse(state.pred_T_wc)
-    ti = preprocess.rgb_to_intensity(pred.color).contiguous()
-    planes = (ti, *icp.intensity_gradients(ti))
-    u, v, sel = icp.association_inputs(src["vmap"], src["valid"], state.T_wc, T_cw, intr)
-    targets = (pred.vertex_w.contiguous(), pred.normal_w.contiguous(), pred.valid.contiguous())
     recs = []
 
-    # K2 with the photometric planes.
-    out_k = kicp.gather_target_maps(u, v, sel, *targets, planes)
-    out_r = kicp.gather_target_maps_ref(u, v, sel, *targets, planes)
-    err = max((a - b).abs().max().item() for a, b in
-              zip(out_k[:2] + out_k[3], out_r[:2] + out_r[3]))
-    mism = int((out_k[2] != out_r[2]).sum())
-    check(err == 0.0 and mism == 0, f"K2rgb differs from its plain version: {err}, {mism}")
-    n, hw = u.shape[0], intr.height * intr.width
-    flat = (torch.ceil(v - 0.5).clamp(0, intr.height - 1).long() * intr.width
-            + torch.ceil(u - 0.5).clamp(0, intr.width - 1).long())
-    table = torch.cat([targets[0].reshape(-1, 3), targets[1].reshape(-1, 3),
-                       targets[2].reshape(-1, 1).float()]
-                      + [p.reshape(-1, 1) for p in planes], 1)
-    recs.append(record(
-        "K2rgb", launches, err,
-        time_ms(lambda: kicp.gather_target_maps(u, v, sel, *targets, planes), 200),
-        plain_time_ms(lambda: kicp.gather_target_maps_ref(u, v, sel, *targets, planes), 50),
-        n * 9 + hw * 37 + n * 37, 0.0,
-        time_ms(lambda: table[flat], 200),
-        f"N={n} pixels, target {intr.height}x{intr.width}, 3 photometric planes; "
-        f"tolerance: exact (bit-identical gather); library = advanced indexing of a "
-        f"(HW, 10) target table by precomputed flat indices",
-    ))
+    # K2 with the photometric planes, levels 0-2, timed at level 0.
+    levels = association_levels(cfg, state, pyr, rgb=True)
+    recs.append(association_record("K2rgb", levels, launches))
+    out_k = kicp.associate_gather(*levels[0])
 
     # K3 with the photometric term, on those correspondences.
-    q_k, n_k, ok_k, (i_t, gx_t, gy_t) = out_k
+    q_k, n_k, ok_k, _, (i_t, gx_t, gy_t) = out_k
     inner_n, _ = icp.level_schedule(icfg, 0)
     gate = (src["valid"].reshape(-1) & ok_k).float()
     rgb_gate = ok_k.float()
     src_v = src["vmap"].reshape(-1, 3).contiguous()
     src_n = src["nmap"].reshape(-1, 3).contiguous()
+    n = src_v.shape[0]
     kw = dict(inner_n=inner_n, dist_thresh=icfg.dist_thresh,
               angle_thresh=icfg.angle_thresh, huber_delta=icfg.huber_delta,
               damping=icfg.damping, min_valid=icfg.min_valid,
@@ -788,7 +884,7 @@ def rgb_kernel_phase(cfg, state, frame, last, launches):
     n_gate, n_rgb = float(gate.sum()), float(rgb_gate.sum())
     recs.append(record(
         "K3rgb", launches, err,
-        time_ms(lambda: kicp.gn_iterations(*args, **kw), 200),
+        kernel_times("K3rgb", lambda: kicp.gn_iterations(*args, **kw), 200),
         plain_time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
         n * 18 * 4 + 3 * 64 + 12,
         (GN_FLOPS_PER_PIXEL * n_gate + RGB_FLOPS_PER_PIXEL * n_rgb) * inner_n, None,
@@ -824,7 +920,7 @@ def rgb_kernel_phase(cfg, state, frame, last, launches):
     n_mask = float(mask.sum())
     recs.append(record(
         "K6", launches, max(errs),
-        time_ms(lambda: kicp.normal_equations(p_w, n_k, q_k, mask, delta), 200),
+        kernel_times("K6", lambda: kicp.normal_equations(p_w, n_k, q_k, mask, delta), 200),
         plain_time_ms(lambda: kicp.normal_equations_ref(p_w, n_k, q_k, mask, delta), 50),
         n * 40 + 44 * 4, NE_FLOPS_PER_PIXEL * n_mask,
         time_ms(lambda: torch.mm(A.T, A), 200),
@@ -903,11 +999,11 @@ def tsdf_update_record(cfg, state, frame, launches):
                      f"err {errs[-3:]}")
         if with_color:
             bench = [x.clone() for x in before]
-            ms = time_ms(lambda: ktsdf.tsdf_update(*bench, *args), 200)
+            times = kernel_times("K8", lambda: ktsdf.tsdf_update(*bench, *args), 200)
             plain_ms = plain_time_ms(lambda: ktsdf.tsdf_update_ref(*bench, *args), 20)
     n_touched = int(touched.sum())
     return record(
-        "K8", launches, max(errs), ms, plain_ms,
+        "K8", launches, max(errs), times, plain_ms,
         TSDF_UPDATE_BYTES_PER_VOXEL * n_valid * b3,
         TSDF_UPDATE_FLOPS_PER_VOXEL * n_valid * b3, None,
         f"K={k} listed, {n_touched} blocks touched, {n_valid} valid rows x {b3} voxels; "
@@ -934,7 +1030,7 @@ def preprocess_record(cfg, frame, launches):
     hw = intr.height * intr.width
     return record(
         "K1", launches, max(errs + [n_err]),
-        time_ms(lambda: kpre.fused_preprocess(frame.depth, intr, pcfg), 200),
+        kernel_times("K1", lambda: kpre.fused_preprocess(frame.depth, intr, pcfg), 200),
         time_ms(lambda: kpre.fused_preprocess_ref(frame.depth, intr, pcfg), 20),
         hw * (4 + 4 + 12 + 12 + 1), PREPROCESS_FLOPS_PER_PIXEL * hw, None,
         f"{intr.height}x{intr.width}, radius {pcfg.bilateral_radius}, "
@@ -987,7 +1083,7 @@ def label_vote_record(cfg, state, frame, launches):
     bench = [x.clone() for x in planes_k]
     return record(
         "K7", launches, err,
-        time_ms(lambda: klab.label_vote(coords, *bench, *args), 100),
+        kernel_times("K7", lambda: klab.label_vote(coords, *bench, *args), 100),
         time_ms(lambda: klab.label_vote_ref(coords, *bench, *args), 10),
         n_bytes, VOTE_FLOPS_PER_VOXEL * n_valid * b3, None,
         f"K={k} listed, {n_valid} valid slots x {b3} voxels, {n_obs} observed, "

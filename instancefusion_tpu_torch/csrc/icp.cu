@@ -1,20 +1,28 @@
-// ICP kernels for Hopper (sm_90a): association gather (K2), the
-// fixed-correspondence Gauss-Newton iterations (K3) and the normal
-// equations of one linearization (K6).
+// ICP kernels for Hopper (sm_90a): the projective association of one
+// pyramid level (K2), the fixed-correspondence Gauss-Newton iterations (K3)
+// and the normal equations of one linearization (K6).
 //
 // K2 replaces instancefusion_tpu/ops/pallas/icp.py:gather_target_maps
-// (_gather_kernel).  On the TPU the nearest-pixel lookup ran as factored
-// one-hot contractions on the MXU over tile-aligned windows, with the
-// target vertex rebuilt from a gathered depth to halve the matmul work, and
-// the photometric intensity split into bf16 hi/lo halves for the MXU.
-// A GPU gathers directly: one thread per source pixel reads the target
-// vertex, normal and validity at (ceil(v - 0.5), ceil(u - 0.5)) and, with
-// the photometric planes, the intensity and its gradients at the same
-// index, in fp32.  There is no window, so no pixel drops out, and every
-// gathered value is bit-identical to the plain gather.  Bound: bytes (each
-// thread reads ~10 (13 with rgb) scattered floats and writes 7 (10));
-// neighbouring pixels project to neighbouring target pixels, so the reads
-// stay mostly coalesced.
+// (_gather_kernel) together with the jnp around it in ops/icp.associate:
+// the two transforms, the projection, the in-image test and the selection.
+// On the TPU the nearest-pixel lookup ran as factored one-hot contractions
+// on the MXU over tile-aligned windows.  Here the whole association is one
+// launch, one thread per source pixel: it moves the source vertex by
+// T_est_wc (read from device memory, so the pose never visits the host),
+// into the prediction view by T_tgt_cw, projects it, and reads the target
+// vertex, normal and validity at the nearest pixel (ceil(v - 0.5),
+// ceil(u - 0.5)) of the full-resolution prediction at the level's stride
+// (so no decimated copy is made) and, with the photometric planes, the
+// level's intensity and gradients at the same pixel.  It writes q_w, n_t,
+// the association flag and the f32 gate that K3 reads, into one buffer.
+// The transforms and the projection round once per operation in the plain
+// version's order (common.cuh), so every output is bit-identical to the
+// plain version (ops/kernels/icp.py:associate_gather_ref).  Bound: bytes
+// (13 B of source, 25 B of scattered target reads (37 with the
+// planes) and 29 B (41) written a pixel); neighbouring source pixels hit
+// neighbouring target pixels, so the reads stay mostly coalesced.  At the
+// coarse levels the launch itself is the cost: it replaces about 29 eager
+// device ops and 3 decimation copies.
 //
 // K3 replaces instancefusion_tpu/ops/pallas/icp.py:gn_iterations
 // (_gn_kernel).  The TPU kernel walked pixel tiles in order on one core and
@@ -50,6 +58,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -154,37 +164,53 @@ __device__ __forceinline__ void add_partials(const float* __restrict__ partials,
   __syncthreads();
 }
 
-__global__ void gather_kernel(const float* __restrict__ u,
-                              const float* __restrict__ v,
-                              const uint8_t* __restrict__ sel,
-                              const float* __restrict__ tvert,
-                              const float* __restrict__ tnorm,
-                              const uint8_t* __restrict__ tvalid,
-                              const float* __restrict__ ti,
-                              const float* __restrict__ tgx,
-                              const float* __restrict__ tgy, int n, int wt,
-                              int ht, float* __restrict__ q,
-                              float* __restrict__ nt, uint8_t* __restrict__ ok,
-                              float* __restrict__ oi, float* __restrict__ ogx,
-                              float* __restrict__ ogy) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// out holds, for n source pixels: q f32[n, 3], n_t f32[n, 3], gate f32[n],
+// then with the planes i_t, gx_t, gy_t f32[n] each, then ok u8[n].
+__global__ void associate_kernel(
+    const float* __restrict__ sv, const uint8_t* __restrict__ sval, int n,
+    const float* __restrict__ T_est, const float* __restrict__ T_tgt,
+    float fx, float fy, float cx, float cy, int width, int height,
+    const float* __restrict__ tvert, const float* __restrict__ tnorm,
+    const uint8_t* __restrict__ tvalid, const float* __restrict__ ti,
+    const float* __restrict__ tgx, const float* __restrict__ tgy, int wt,
+    int hl, int wl, int stride, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  // Round half up, clamped into the target; fmaxf maps NaN to 0.
-  float uf = fminf(fmaxf(ceilf(u[i] - 0.5f), 0.0f), (float)(wt - 1));
-  float vf = fminf(fmaxf(ceilf(v[i] - 0.5f), 0.0f), (float)(ht - 1));
-  int flat = (int)vf * wt + (int)uf;
-  q[3 * i + 0] = tvert[3 * flat + 0];
-  q[3 * i + 1] = tvert[3 * flat + 1];
-  q[3 * i + 2] = tvert[3 * flat + 2];
-  nt[3 * i + 0] = tnorm[3 * flat + 0];
-  nt[3 * i + 1] = tnorm[3 * flat + 1];
-  nt[3 * i + 2] = tnorm[3 * flat + 2];
-  ok[i] = (tvalid[flat] != 0 && sel[i] != 0) ? 1 : 0;
-  if (ti != nullptr) {  // the photometric planes, at the same index
-    oi[i] = ti[flat];
-    ogx[i] = tgx[flat];
-    ogy[i] = tgy[flat];
+  const long long nn = n;
+  const float sx = sv[3 * i], sy = sv[3 * i + 1], sz = sv[3 * i + 2];
+  const float wx = cam_row(sx, sy, sz, T_est);
+  const float wy = cam_row(sx, sy, sz, T_est + 4);
+  const float wz = cam_row(sx, sy, sz, T_est + 8);
+  const float x = cam_row(wx, wy, wz, T_tgt);
+  const float y = cam_row(wx, wy, wz, T_tgt + 4);
+  const float z = cam_row(wx, wy, wz, T_tgt + 8);
+  const float zs = fabsf(z) > 1e-12f ? z : 1e-12f;
+  const float uf = ceilf(__fsub_rn(project_coord(fx, x, zs, cx), 0.5f));
+  const float vf = ceilf(__fsub_rn(project_coord(fy, y, zs, cy), 0.5f));
+  const bool sel = sval[i] != 0 && uf >= 0.0f && uf < (float)width &&
+                   vf >= 0.0f && vf < (float)height && z > 0.0f;
+  // Round half up, clamped into the decimated target; fmaxf maps NaN to 0.
+  const int ui = (int)fminf(fmaxf(uf, 0.0f), (float)(wl - 1));
+  const int vi = (int)fminf(fmaxf(vf, 0.0f), (float)(hl - 1));
+  const long long flat = (long long)vi * stride * wt + (long long)ui * stride;
+  float* q = out;
+  float* nt = out + 3 * nn;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    q[3 * i + c] = tvert[3 * flat + c];
+    nt[3 * i + c] = tnorm[3 * flat + c];
   }
+  const bool ok = sel && tvalid[flat] != 0;
+  out[6 * nn + i] = ok ? 1.0f : 0.0f;
+  int nf = 7;
+  if (ti != nullptr) {  // the level's photometric planes, at the same pixel
+    const int lflat = vi * wl + ui;
+    out[7 * nn + i] = ti[lflat];
+    out[8 * nn + i] = tgx[lflat];
+    out[9 * nn + i] = tgy[lflat];
+    nf = 10;
+  }
+  reinterpret_cast<uint8_t*>(out + nf * nn)[i] = ok ? 1 : 0;
 }
 
 template <bool kRgb>
@@ -391,19 +417,22 @@ __global__ void ne_finish_kernel(const float* __restrict__ partials,
 
 }  // namespace
 
-extern "C" int ifl_gather_target_maps(const float* u, const float* v,
-                                      const uint8_t* sel, const float* tvert,
-                                      const float* tnorm,
-                                      const uint8_t* tvalid, const float* ti,
-                                      const float* tgx, const float* tgy,
-                                      int n, int wt, int ht, float* q,
-                                      float* nt, uint8_t* ok, float* oi,
-                                      float* ogx, float* ogy, void* stream) {
+// With ti == nullptr the photometric planes are off and tgx, tgy are not
+// read.
+extern "C" int ifl_associate(const float* sv, const uint8_t* sval, int n,
+                             const float* T_est, const float* T_tgt, float fx,
+                             float fy, float cx, float cy, int width,
+                             int height, const float* tvert,
+                             const float* tnorm, const uint8_t* tvalid,
+                             const float* ti, const float* tgx,
+                             const float* tgy, int wt, int hl, int wl,
+                             int stride, float* out, void* stream) {
+  if (n == 0) return 0;
   const int threads = 256;
   const int blocks = (n + threads - 1) / threads;
-  gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      u, v, sel, tvert, tnorm, tvalid, ti, tgx, tgy, n, wt, ht, q, nt, ok, oi,
-      ogx, ogy);
+  associate_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      sv, sval, n, T_est, T_tgt, fx, fy, cx, cy, width, height, tvert, tnorm,
+      tvalid, ti, tgx, tgy, wt, hl, wl, stride, out);
   return (int)cudaGetLastError();
 }
 

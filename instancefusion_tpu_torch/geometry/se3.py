@@ -138,6 +138,18 @@ def transform_points(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return p @ T[:3, :3].T + T[:3, 3]
 
 
+def cam_row(p: torch.Tensor, T: torch.Tensor, i: int) -> torch.Tensor:
+    """Coordinate i of (4,4) T applied to points (..., 3), summed left to
+    right one rounding at a time: ((x r0 + y r1) + z r2) + t.
+
+    ``csrc/common.cuh``'s ``cam_row`` does the same without fused
+    multiply-adds, so a kernel and its plain version place a point on the
+    same pixel: at a .5 boundary or a tent edge a 1-ulp difference picks
+    another pixel.
+    """
+    return ((p[..., 0] * T[i, 0] + p[..., 1] * T[i, 1]) + p[..., 2] * T[i, 2]) + T[i, 3]
+
+
 def rotate_vectors(T: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Apply only the rotation of (4,4) T to vectors (..., 3)."""
     return n @ T[:3, :3].T

@@ -1,9 +1,10 @@
 """Frame-to-model tracking: projective point-to-plane ICP (port of ``ops/icp.py``).
 
 New-frame pixels are moved by the current pose estimate, projected into
-the predicted model view, associated with the predicted vertex and normal
-there (kernel K2), and the pose is refined by Gauss-Newton steps on those
-fixed correspondences (kernel K3), coarse to fine.  Association re-runs
+the predicted model view and associated with the predicted vertex and
+normal there, all in one launch of kernel K2 per association round, and
+the pose is refined by Gauss-Newton steps on those fixed correspondences
+(kernel K3), coarse to fine.  Association re-runs
 every ``IcpConfig.assoc_every`` steps.  Everything stays on the device: the
 health gate and the pose choice are ``torch.where``, never a host branch.
 
@@ -22,15 +23,16 @@ from typing import NamedTuple
 import torch
 
 from instancefusion_tpu_torch.config import IcpConfig
-from instancefusion_tpu_torch.geometry.camera import Intrinsics, project
+from instancefusion_tpu_torch.geometry.camera import Intrinsics
 from instancefusion_tpu_torch.geometry.se3 import (
     rotate_vectors,
     se3_inverse,
     transform_points,
 )
 from instancefusion_tpu_torch.ops.common import decimate, interior
-from instancefusion_tpu_torch.ops.kernels.icp import (
-    gather_target_maps,
+from instancefusion_tpu_torch.ops.kernels.icp import (  # noqa: F401 (association_inputs)
+    associate_gather,
+    association_inputs,
     gn_iterations,
     normal_equations,
     rgb_normal_equations_ref,
@@ -45,16 +47,6 @@ class TrackResult(NamedTuple):
     valid: torch.Tensor  # () bool tracking-health gate passed
 
 
-def association_inputs(vmap_src_c, valid_src, T_est_wc, T_tgt_cw, intr: Intrinsics):
-    """Projected target coordinates (u, v) and the pixels worth gathering
-    for (valid source, in the target image, in front of its camera)."""
-    p_w = transform_points(T_est_wc, vmap_src_c.reshape(-1, 3))
-    u, v, z = project(intr, transform_points(T_tgt_cw, p_w))
-    uf, vf = torch.ceil(u - 0.5), torch.ceil(v - 0.5)
-    in_img = (uf >= 0) & (uf < intr.width) & (vf >= 0) & (vf < intr.height)
-    return u.contiguous(), v.contiguous(), valid_src.reshape(-1) & in_img & (z > 0.0)
-
-
 def associate(
     vmap_src_c: torch.Tensor,  # (H,W,3) new-frame vertices, camera frame
     valid_src: torch.Tensor,  # (H,W)
@@ -66,23 +58,22 @@ def associate(
     intr: Intrinsics,
     tgt_rgb=None,  # optional (intensity, gx, gy) target planes (Ht,Wt)
 ):
-    """Projective data association; returns (q_w (HW,3), n_t (HW,3), ok (HW,)).
+    """Projective data association (kernel K2); returns (q_w (HW,3),
+    n_t (HW,3), ok (HW,)).
 
     The target pixel is the nearest one, rounding half up (ceil(x - 0.5)).
-    With ``tgt_rgb`` the photometric targets ride the same gather and the
+    With ``tgt_rgb`` the photometric targets ride the same launch and the
     return gains (i_t, gx_t, gy_t, ok), each (HW,).
     """
-    u, v, sel = association_inputs(vmap_src_c, valid_src, T_est_wc, T_tgt_cw, intr)
-    planes = None if tgt_rgb is None else tuple(p.contiguous() for p in tgt_rgb)
-    out = gather_target_maps(
-        u, v, sel,
-        tgt_vertex_w.contiguous(), tgt_normal_w.contiguous(), tgt_valid.contiguous(),
-        planes,
+    a = associate_gather(
+        vmap_src_c.reshape(-1, 3).contiguous(), valid_src.reshape(-1).contiguous(),
+        T_est_wc.contiguous(), T_tgt_cw.contiguous(), intr, tgt_vertex_w.contiguous(),
+        tgt_normal_w.contiguous(), tgt_valid.contiguous(), 1,
+        None if tgt_rgb is None else tuple(p.contiguous() for p in tgt_rgb),
     )
     if tgt_rgb is None:
-        return out
-    q_w, n_t, ok, (i_t, gx_t, gy_t) = out
-    return q_w, n_t, ok, (i_t, gx_t, gy_t, ok)
+        return a.q_w, a.n_t, a.ok
+    return a.q_w, a.n_t, a.ok, (*a.rgb, a.ok)
 
 
 def reduce_equations(vmap_src_c, nmap_src_c, valid_src, q_w, n_t, assoc_valid,
@@ -144,14 +135,6 @@ def solve_increment(H6, b6, cfg: IcpConfig):
     return _solve(H6, b6, cfg.damping)
 
 
-def _subsample_maps(vertex_w, normal_w, valid, lvl):
-    """Nearest-subsample prediction maps to pyramid level `lvl`."""
-    if lvl == 0:
-        return vertex_w, normal_w, valid
-    s = 1 << lvl
-    return decimate(vertex_w, s), decimate(normal_w, s), decimate(valid, s)
-
-
 def level_schedule(cfg: IcpConfig, lvl: int) -> tuple[int, int]:
     """(inner_n, outer_n) at pyramid level `lvl`: GN steps per association
     and association rounds."""
@@ -182,14 +165,16 @@ def track(
     """
     T_pred_cw = se3_inverse(T_pred_wc)
     use_rgb = cfg.rgb_weight > 0.0 and pred_intensity is not None
-    T = T_init_wc
+    # K2 reads the full-resolution prediction at each level's stride.
+    tgt = [x.contiguous() for x in (pred_vertex_w, pred_normal_w, pred_valid)]
+    T = T_init_wc.contiguous()
     inliers = res_mean = None
     for lvl in range(cfg.levels - 1, -1, -1):  # coarse -> fine
         src = src_pyramid[lvl]
         intr_l = intr.level(lvl)
-        tv, tn, tval = _subsample_maps(pred_vertex_w, pred_normal_w, pred_valid, lvl)
         src_v = src["vmap"].reshape(-1, 3).contiguous()
         src_n = src["nmap"].reshape(-1, 3).contiguous()
+        src_ok = src["valid"].reshape(-1).contiguous()
         tgt_rgb = None
         if use_rgb:
             ti = decimate(pred_intensity, 1 << lvl).contiguous()
@@ -197,19 +182,14 @@ def track(
             i_src = src["intensity"].reshape(-1).contiguous()
         inner_n, outer_n = level_schedule(cfg, lvl)
         for _ in range(outer_n):
-            out = associate(
-                src["vmap"], src["valid"], tv, tn, tval, T, T_pred_cw, intr_l, tgt_rgb
-            )
-            q_w, n_t, a_ok = out[:3]
-            gate = (src["valid"].reshape(-1) & a_ok).float()
+            a = associate_gather(src_v, src_ok, T, T_pred_cw, intr_l, *tgt, 1 << lvl,
+                                 tgt_rgb)
             rgb_kw = {}
             if use_rgb:
-                i_t, gx_t, gy_t, rgb_ok = out[3]
-                rgb_kw = dict(rgb=(i_src, i_t, gx_t, gy_t, rgb_ok.float()),
-                              T_pred_cw=T_pred_cw, rgb_intr=(intr_l.fx, intr_l.fy),
-                              rgb_weight=cfg.rgb_weight)
+                rgb_kw = dict(rgb=(i_src, *a.rgb, a.gate), T_pred_cw=T_pred_cw,
+                              rgb_intr=(intr_l.fx, intr_l.fy), rgb_weight=cfg.rgb_weight)
             T, inliers, res_sum = gn_iterations(
-                src_v, src_n, q_w, n_t, gate, T,
+                src_v, src_n, a.q_w, a.n_t, a.gate, T,
                 inner_n=inner_n, dist_thresh=cfg.dist_thresh,
                 angle_thresh=cfg.angle_thresh, huber_delta=cfg.huber_delta,
                 damping=cfg.damping, min_valid=cfg.min_valid, **rgb_kw,

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels (``csrc/``) with their plain PyTorch versions.
 
-K1 ``preprocess.fused_preprocess``, K2 ``icp.gather_target_maps``, K3
+K1 ``preprocess.fused_preprocess``, K2 ``icp.associate_gather``, K3
 ``icp.gn_iterations``, K4 ``tsdf.integrate``, K5 ``raycast.splat_planes``,
 K6 ``icp.normal_equations``, K7 ``labels.label_vote`` and K8
 ``tsdf.tsdf_update``.  Each wrapper launches its kernel for CUDA tensors
@@ -16,7 +16,7 @@ def wrappers():
     planes; K5 ``launches_color``, its launches with color)."""
     return {
         "K1": preprocess.fused_preprocess,
-        "K2": icp.gather_target_maps,
+        "K2": icp.associate_gather,
         "K3": icp.gn_iterations,
         "K4": tsdf.integrate,
         "K5": raycast.splat_planes,

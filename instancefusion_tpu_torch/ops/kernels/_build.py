@@ -5,9 +5,9 @@ for ``sm_90a`` into its own shared library, loaded with ``ctypes``.  Nothing
 is built on import: a kernel's wrapper asks for its library at its first
 launch, and ``build()`` starts one ``nvcc`` per source, all at once, for a
 caller that wants every kernel ready up front.  Libraries are named by a
-digest of their source and flags, so an edited source is rebuilt and a
-built one is reused.  They go to ``instancefusion_tpu_torch/_build/``
-(listed in ``.gitignore``).
+digest of their source, the shared headers and the flags, so an edited
+source or header is rebuilt and a built one is reused.  They go to
+``instancefusion_tpu_torch/_build/`` (listed in ``.gitignore``).
 """
 
 from __future__ import annotations
@@ -43,8 +43,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where ``csrc/<name>.cu`` is built, named by a digest of the source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,5 +1,6 @@
-"""ICP kernels K2 (association gather), K3 (Gauss-Newton iterations) and K6
-(the normal equations of one linearization).
+"""ICP kernels K2 (the projective association of one pyramid level), K3
+(Gauss-Newton iterations) and K6 (the normal equations of one
+linearization).
 
 Each wrapper runs its CUDA kernel (``csrc/icp.cu``) for CUDA tensors and its
 plain PyTorch version, the ``*_ref`` function beside it, for CPU tensors; it
@@ -13,10 +14,12 @@ that carried the photometric planes.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from instancefusion_tpu_torch.geometry.se3 import se3_exp
+from instancefusion_tpu_torch.geometry.camera import Intrinsics, project
+from instancefusion_tpu_torch.geometry.se3 import cam_row, se3_exp
 from instancefusion_tpu_torch.ops.kernels import _build
 
 # Fixed grid of the K3 and K6 reductions: the per-block partials are added
@@ -28,7 +31,8 @@ _NE_OUT = 44  # K6 output: H 36, b 6, inliers, sum |r| w
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ifl_gather_target_maps": [_P] * 9 + [_I] * 3 + [_P] * 7,
+    "ifl_associate": [_P, _P, _I, _P, _P] + [_F] * 4 + [_I] * 2 + [_P] * 6
+                     + [_I] * 4 + [_P, _P],
     "ifl_gn_iterations": [_P] * 11 + [_I, _P, _P, _I, _P, _I] + [_F] * 8 + [_P],
     "ifl_normal_equations": [_P] * 4 + [_I, _F, _P, _I, _P, _P],
 }
@@ -47,9 +51,35 @@ def _check_f32(**tensors) -> None:
 # --------------------------------------------------------------------- K2
 
 
+class Association(NamedTuple):
+    q_w: torch.Tensor  # f32[N, 3] associated target vertex (world frame)
+    n_t: torch.Tensor  # f32[N, 3] associated target normal
+    ok: torch.Tensor  # bool[N] source pixel associated with a valid target
+    gate: torch.Tensor  # f32[N] ``ok`` as 0/1: the gate K3 reads
+    rgb: tuple | None  # (i_t, gx_t, gy_t), each f32[N], with the photometric planes
+
+
+def association_inputs(vmap_src_c, valid_src, T_est_wc, T_tgt_cw, intr: Intrinsics):
+    """Projected target coordinates (u, v) and the pixels worth gathering
+    (valid source, in the target image, in front of its camera).
+
+    Both transforms run component-wise (``cam_row``), one rounding per
+    operation, as K2 computes them: the target pixel is the nearest one,
+    and a different rounding of the projection would pick the neighbour
+    at a .5 boundary.
+    """
+    p_c = vmap_src_c.reshape(-1, 3)
+    p_w = torch.stack([cam_row(p_c, T_est_wc, i) for i in range(3)], -1)
+    u, v, z = project(intr, torch.stack([cam_row(p_w, T_tgt_cw, i) for i in range(3)], -1))
+    uf, vf = torch.ceil(u - 0.5), torch.ceil(v - 0.5)
+    in_img = (uf >= 0) & (uf < intr.width) & (vf >= 0) & (vf < intr.height)
+    return u, v, valid_src.reshape(-1) & in_img & (z > 0.0)
+
+
 def gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid,
                            tgt_rgb=None):
-    """Plain K2: nearest target pixel, rounding half up, clamped into the map.
+    """The gather of plain K2 on given target maps: nearest target pixel,
+    rounding half up, clamped into the map.
 
     Gathers at (ceil(v - 0.5), ceil(u - 0.5)); valid = target valid & sel.
     With ``tgt_rgb`` = (intensity, gx, gy) planes it also gathers those at
@@ -70,57 +100,85 @@ def gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid,
     return q, n_t, ok, tuple(p.reshape(-1)[flat] for p in tgt_rgb)
 
 
-def gather_target_maps(u, v, sel, tgt_vertex, tgt_normal, tgt_valid, tgt_rgb=None):
-    """Association gather for N source pixels.
-
-    u, v: f32[N] projected target coordinates; sel: bool[N] pixels worth
-    gathering (valid source, in image, in front of the camera);
-    tgt_vertex, tgt_normal: f32[Ht, Wt, 3]; tgt_valid: bool[Ht, Wt];
-    tgt_rgb: optional (intensity, gx, gy), each f32[Ht, Wt].
-    Returns (q f32[N, 3], n_t f32[N, 3], ok bool[N]) and, with ``tgt_rgb``,
-    a fourth entry (i_t, gx_t, gy_t), each f32[N].
+def associate_gather_ref(src_v, src_valid, T_est_wc, T_tgt_cw, intr: Intrinsics,
+                         tgt_vertex, tgt_normal, tgt_valid, stride: int = 1,
+                         tgt_rgb=None) -> Association:
+    """Plain K2: ``association_inputs``, then the nearest-pixel gather from
+    the full-resolution target maps at the level's stride: target pixel
+    (vi s, ui s) with (vi, ui) clamped into the decimated map
+    (``ops/common.decimate``'s floor shapes).  The photometric planes are
+    the level's own, indexed at (vi, ui).
     """
-    if u.device.type == "cpu":
-        return gather_target_maps_ref(u, v, sel, tgt_vertex, tgt_normal, tgt_valid,
-                                      tgt_rgb)
-    tensors = dict(u=u, v=v, sel=sel, tgt_vertex=tgt_vertex, tgt_normal=tgt_normal,
-                   tgt_valid=tgt_valid)
-    if tgt_rgb is not None:
-        planes = dict(zip(("tgt_intensity", "tgt_gx", "tgt_gy"), tgt_rgb))
-        _check_f32(**planes)
-        for name, x in planes.items():
-            if x.shape != tgt_valid.shape:
-                raise ValueError(f"{name} must have the target's shape")
-        tensors.update(planes)
-    _build.check_tensors(tensors, u.device)
-    n = u.shape[0]
+    u, v, sel = association_inputs(src_v, src_valid, T_est_wc, T_tgt_cw, intr)
     ht, wt = tgt_valid.shape
-    q = torch.empty((n, 3), dtype=torch.float32, device=u.device)
-    n_t = torch.empty_like(q)
-    ok = torch.empty((n,), dtype=torch.bool, device=u.device)
-    outs = ([torch.empty((n,), dtype=torch.float32, device=u.device) for _ in range(3)]
-            if tgt_rgb is not None else None)
+    hl, wl = ht // stride, wt // stride
+
+    def index(x, n):
+        return torch.nan_to_num(torch.ceil(x - 0.5)).clamp(0, n - 1).long()
+
+    vi, ui = index(v, hl), index(u, wl)
+    flat = vi * stride * wt + ui * stride
+    ok = tgt_valid.reshape(-1)[flat] & sel
+    rgb = None
+    if tgt_rgb is not None:
+        rgb = tuple(p.reshape(-1)[vi * wl + ui] for p in tgt_rgb)
+    return Association(tgt_vertex.reshape(-1, 3)[flat], tgt_normal.reshape(-1, 3)[flat],
+                       ok, ok.float(), rgb)
+
+
+def associate_gather(src_v, src_valid, T_est_wc, T_tgt_cw, intr: Intrinsics,
+                     tgt_vertex, tgt_normal, tgt_valid, stride: int = 1,
+                     tgt_rgb=None) -> Association:
+    """K2: projective association of one pyramid level, in one launch.
+
+    src_v: f32[N, 3] source vertices (camera frame) and src_valid: bool[N]
+    of the level; T_est_wc, T_tgt_cw: f32[4, 4] on the device, read there
+    by the kernel; ``intr`` the level's intrinsics; tgt_vertex, tgt_normal:
+    f32[Ht, Wt, 3] and tgt_valid: bool[Ht, Wt], the full-resolution
+    prediction, read at the level's decimation ``stride``; tgt_rgb:
+    optional (intensity, gx, gy) planes of the level, each f32[Ht // stride,
+    Wt // stride].  The outputs are views of one allocation.
+    """
+    if src_v.device.type == "cpu":
+        return associate_gather_ref(src_v, src_valid, T_est_wc, T_tgt_cw, intr,
+                                    tgt_vertex, tgt_normal, tgt_valid, stride, tgt_rgb)
+    dev = src_v.device
+    n = src_valid.numel()
+    ht, wt = tgt_valid.shape
+    hl, wl = ht // stride, wt // stride
+    f32 = torch.float32
+    checks = [("src_v", src_v, f32, (n, 3)), ("src_valid", src_valid, torch.bool, None),
+              ("T_est_wc", T_est_wc, f32, (4, 4)), ("T_tgt_cw", T_tgt_cw, f32, (4, 4)),
+              ("tgt_vertex", tgt_vertex, f32, (ht, wt, 3)),
+              ("tgt_normal", tgt_normal, f32, (ht, wt, 3)),
+              ("tgt_valid", tgt_valid, torch.bool, None)]
+    planes = () if tgt_rgb is None else tuple(tgt_rgb)
+    checks += [(name, x, f32, (hl, wl)) for name, x in zip(("intensity", "gx", "gy"), planes)]
+    for name, x, dtype, shape in checks:
+        if (x.dtype != dtype or x.device != dev or not x.is_contiguous()
+                or (shape is not None and tuple(x.shape) != shape)):
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}"
+                             + (f" of shape {shape}" if shape else ""))
+    nf = 7 + len(planes)  # floats a pixel: q 3, n_t 3, gate, the planes
+    buf = torch.empty(n * (4 * nf + 1), dtype=torch.uint8, device=dev)
+    q, n_t, gate, *rgb = buf[:4 * nf * n].view(f32).split([3 * n, 3 * n] + [n] * (nf - 6))
     p = _build.ptr
-
-    def opt(ts, i):
-        return None if ts is None else p(ts[i])
-
-    err = _lib().ifl_gather_target_maps(
-        p(u), p(v), p(sel), p(tgt_vertex), p(tgt_normal), p(tgt_valid),
-        opt(tgt_rgb, 0), opt(tgt_rgb, 1), opt(tgt_rgb, 2), n, wt, ht,
-        p(q), p(n_t), p(ok), opt(outs, 0), opt(outs, 1), opt(outs, 2),
-        _build.stream_handle(),
+    plane_ptrs = [p(x) for x in planes] if planes else [None] * 3
+    err = _lib().ifl_associate(
+        p(src_v), p(src_valid), n, p(T_est_wc), p(T_tgt_cw), intr.fx, intr.fy,
+        intr.cx, intr.cy, intr.width, intr.height, p(tgt_vertex), p(tgt_normal),
+        p(tgt_valid), *plane_ptrs, wt, hl, wl, stride, p(buf), _build.stream_handle(),
     )
-    _build.check(err, "gather_target_maps")
-    gather_target_maps.launches += 1
-    if outs is None:
-        return q, n_t, ok
-    gather_target_maps.launches_rgb += 1
-    return q, n_t, ok, tuple(outs)
+    _build.check(err, "associate_gather")
+    associate_gather.launches += 1
+    if planes:
+        associate_gather.launches_rgb += 1
+    return Association(q.view(n, 3), n_t.view(n, 3), buf[4 * nf * n:].view(torch.bool),
+                       gate, tuple(rgb) if planes else None)
 
 
-gather_target_maps.launches = 0
-gather_target_maps.launches_rgb = 0
+associate_gather.launches = 0
+associate_gather.launches_rgb = 0
 
 
 # ------------------------------------------------------------------ K6, K3

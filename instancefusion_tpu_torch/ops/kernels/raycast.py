@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from instancefusion_tpu_torch.geometry.camera import Intrinsics
-from instancefusion_tpu_torch.geometry.se3 import se3_inverse
+from instancefusion_tpu_torch.geometry.se3 import cam_row, se3_inverse
 from instancefusion_tpu_torch.ops.kernels import _build
 from instancefusion_tpu_torch.ops.kernels.tsdf import voxel_centers
 
@@ -28,10 +28,15 @@ _ZREF = 2.0
 _DEN_TAU = 0.05
 # Tent radius (px) of a block at depth z: clip(_TENT * fx * voxel / z, 1, rmax).
 _TENT = 0.7
+# Shared-memory tile budget of one K5 block: a block whose footprint box
+# holds at most this many bytes of planes sums its taps on chip.  With the
+# 16 KB voting list of a 512-voxel block with color, two blocks fit an
+# H100 SM's 228 KB.
+SPLAT_TILE_BYTES = 96 * 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ifl_splat": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_F] * 11 + [_P, _P],
+    "ifl_splat": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_F] * 11 + [_I, _P, _P],
 }
 
 
@@ -45,21 +50,11 @@ class SplatImages(NamedTuple):
     color: torch.Tensor  # f32[H, W, 3]
 
 
-def _cam_row(p, T_cw, i: int):
-    """Camera coordinate i of world points (..., 3), summed left to right
-    one rounding at a time: ((x r0 + y r1) + z r2) + t.  The kernel does the
-    same without fused multiply-adds, so both place a voxel's tent on the
-    same pixels: a tent edge's weight times a near surface's softmin weight
-    would otherwise turn a 1-ulp difference into centimeters of depth."""
-    return ((p[..., 0] * T_cw[i, 0] + p[..., 1] * T_cw[i, 1])
-            + p[..., 2] * T_cw[i, 2]) + T_cw[i, 3]
-
-
 def _vote_terms(coords, sdf, weight, color, T_cw, intr: Intrinsics, cfg,
                 with_color: bool):
     """Per-voxel vote quantities (u, v, w, sm, d_abs, colors), each (K, B^3)."""
     p_w = voxel_centers(coords, cfg)
-    x, y, z = (_cam_row(p_w, T_cw, i) for i in range(3))
+    x, y, z = (cam_row(p_w, T_cw, i) for i in range(3))
     vis = z > 0.05
     zs = torch.where(vis, z, torch.ones_like(z))
     u = intr.fx * x / zs + intr.cx
@@ -79,8 +74,8 @@ def _tent_k(intr: Intrinsics, cfg) -> float:
 
 
 def _block_terms(coords, T_cw, intr: Intrinsics, cfg, rmax: int):
-    """Per-block (straddles-the-camera-plane, tent radius) from its corners
-    and its center depth."""
+    """Per-block (straddles-the-camera-plane, tent radius, corners' screen
+    box (umin, vmin, umax, vmax)) from its corners and its center depth."""
     bsz = cfg.block_size * cfg.voxel_size
 
     def world(offsets):  # block-grid offsets (..., 3) -> world points
@@ -88,13 +83,47 @@ def _block_terms(coords, T_cw, intr: Intrinsics, cfg, rmax: int):
         return torch.stack([pts[..., i] + cfg.origin[i] for i in range(3)], -1)
 
     bits = torch.arange(8, device=coords.device)
-    corner = torch.stack([bits // 4, (bits // 2) % 2, bits % 2], -1).float()
-    zmin = torch.amin(_cam_row(world(corner), T_cw, 2), dim=1)
-    zc = _cam_row(world(torch.full((1, 3), 0.5, device=coords.device)), T_cw, 2)[:, 0]
+    corner = world(torch.stack([bits // 4, (bits // 2) % 2, bits % 2], -1).float())
+    zc8 = cam_row(corner, T_cw, 2)
+    u8 = intr.fx * cam_row(corner, T_cw, 0) / zc8 + intr.cx
+    v8 = intr.fy * cam_row(corner, T_cw, 1) / zc8 + intr.cy
+    box = torch.stack([u8.amin(1), v8.amin(1), u8.amax(1), v8.amax(1)], -1)
+    zc = cam_row(world(torch.full((1, 3), 0.5, device=coords.device)), T_cw, 2)[:, 0]
     # A number over a tensor is its reciprocal times the number in PyTorch.
     r_t = torch.clamp(torch.reciprocal(torch.clamp(zc, min=0.3)) * _tent_k(intr, cfg),
                       1.0, float(rmax))
-    return zmin <= 1e-3, r_t
+    return torch.amin(zc8, dim=1) <= 1e-3, r_t, box
+
+
+def footprint_boxes(slots, slot_valid, block_coords, T_wc, intr: Intrinsics, cfg,
+                    rmax: int):
+    """K5's footprint box of each listed block, as the kernel computes it:
+    the screen box of the block's 8 projected corners widened by
+    ceil(r_t) + 1 px and clipped to the image.  Returns (box i64[K, 4] as
+    x0, y0, x1, y1 inclusive, kept bool[K]: valid and not straddling the
+    camera plane); a box with x0 > x1 or y0 > y1 lies off the image."""
+    rows = torch.where(slot_valid, slots, torch.zeros_like(slots)).long()
+    straddle, r_t, box = _block_terms(block_coords[rows], se3_inverse(T_wc), intr, cfg,
+                                      rmax)
+    pad = torch.ceil(r_t) + 1.0
+    lo = torch.clamp(torch.floor(box[:, :2]) - pad[:, None], min=0.0)
+    hi = torch.ceil(box[:, 2:]) + pad[:, None]
+    hi = torch.stack([torch.clamp(hi[:, 0], max=intr.width - 1.0),
+                      torch.clamp(hi[:, 1], max=intr.height - 1.0)], -1)
+    return torch.cat([lo, hi], 1).long(), slot_valid & ~straddle
+
+
+def splat_routes(slots, slot_valid, block_coords, T_wc, intr: Intrinsics, cfg,
+                 with_color: bool, rmax: int) -> dict:
+    """How many listed blocks K5 sums on the shared-memory tile ("tile":
+    footprint box within ``SPLAT_TILE_BYTES``), how many straight into the
+    global planes ("global"), and how many it drops ("dropped": straddling
+    the camera plane)."""
+    box, kept = footprint_boxes(slots, slot_valid, block_coords, T_wc, intr, cfg, rmax)
+    w, h = box[:, 2] - box[:, 0] + 1, box[:, 3] - box[:, 1] + 1
+    fits = (w > 0) & (h > 0) & (w * h * (6 if with_color else 3) * 4 <= SPLAT_TILE_BYTES)
+    return {"tile": int((kept & fits).sum()), "global": int((kept & ~fits).sum()),
+            "dropped": int((slot_valid & ~kept).sum())}
 
 
 def splat_taps_ref(slots, slot_valid, block_coords, sdf, weight, color,
@@ -109,7 +138,7 @@ def splat_taps_ref(slots, slot_valid, block_coords, sdf, weight, color,
     rows = torch.where(slot_valid, slots, torch.zeros_like(slots)).long()
     coords = block_coords[rows]
     T_cw = se3_inverse(T_wc)
-    straddle, r_t = _block_terms(coords, T_cw, intr, cfg, rmax)
+    straddle, r_t, _ = _block_terms(coords, T_cw, intr, cfg, rmax)
     keep = slot_valid & ~straddle
     u, v, w, sm, d_abs, cols = _vote_terms(
         coords, sdf[rows], weight[rows], color[rows] if with_color else None,
@@ -216,8 +245,8 @@ def splat_planes(slots, slot_valid, block_coords, sdf, weight, color, T_wc,
         p(weight), p(color) if with_color else None, p(T_cw),
         intr.width, intr.height, cfg.block_size, rmax,
         intr.fx, intr.fy, intr.cx, intr.cy, cfg.voxel_size, cfg.trunc,
-        *cfg.origin, cfg.block_size * cfg.voxel_size, _tent_k(intr, cfg), p(acc),
-        _build.stream_handle(),
+        *cfg.origin, cfg.block_size * cfg.voxel_size, _tent_k(intr, cfg),
+        SPLAT_TILE_BYTES, p(acc), _build.stream_handle(),
     )
     _build.check(err, "splat_planes")
     splat_planes.launches += 1

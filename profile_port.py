@@ -12,8 +12,9 @@ on the synthetic orbit, after 3 warm-up frames:
    called in turn through the port's public functions, with a
    device synchronize after each, so every stage's wall time is its own;
 2. per kernel: ``torch.profiler`` over N more frames run by ``slam.step``
-   unsynchronized, giving device time by kernel name, the number of kernel
-   launches per frame and the device's busy share of the window;
+   unsynchronized, giving device time by kernel name (per frame and per
+   launch), the number of device ops (kernel launches) per frame and the
+   device's busy share of the window;
 3. the instance path (chip_smoke.py's instance configuration, ground-truth
    masks on every frame): N frames of ``slam.step_seg`` untraced, then the
    stages of a segmented frame synchronized one by one (the packaged head
@@ -35,7 +36,9 @@ on the synthetic orbit, after 3 warm-up frames:
    raycast.
 
 Prints a table per part, the card's name and power limit, and as its last
-line one JSON object with every number.
+line one JSON object with every number.  To compare two trees, run each
+tree's own copy in turns on one machine (parent, change, change, parent):
+ms/frame varies widely from one machine and run to the next.
 """
 
 from __future__ import annotations
@@ -285,7 +288,7 @@ def report_profile(name, prof, n):
           f"{prof['device_ops_per_frame']!r} device ops per frame")
     for kname, v in prof["kernels"].items():
         print(f"  {v['ms_per_frame']:10.4f} ms/frame  {v['per_frame']:7.1f}/frame  "
-              f"{kname[:110]}")
+              f"{1e3 * v['ms_per_frame'] / v['per_frame']:9.2f} us/launch  {kname[:100]}")
 
 
 def main() -> None:

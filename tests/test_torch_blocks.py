@@ -242,3 +242,65 @@ def test_clean_matches_reference(touched_runs):
     np.testing.assert_array_equal(n(out_stamp), np.asarray(ref_stamp))
     out2, none = pblk.clean(_port_map(bm), PCFG)
     assert none is None and int(out2.n_active) >= int(out_bm.n_active)
+
+
+def _look_at(eye, center, rng, jitter):
+    """Camera-to-world pose at `eye` looking at `center`, then turned by a
+    random rotation of up to `jitter` rad (so blocks also fall partly or
+    wholly off the image)."""
+    fwd = (center - eye) / np.linalg.norm(center - eye)
+    right = np.cross(fwd, [0.0, 0.0, -1.0])
+    right /= np.linalg.norm(right)
+    R = np.stack([right, np.cross(fwd, right), fwd], -1)
+    axis = rng.normal(size=3)
+    axis /= np.linalg.norm(axis)
+    K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    ang = rng.uniform(0.0, jitter)
+    T = np.eye(4)
+    T[:3, :3] = (np.eye(3) + np.sin(ang) * K + (1 - np.cos(ang)) * K @ K) @ R
+    T[:3, 3] = eye
+    return T.astype(np.float32)
+
+
+def test_splat_taps_lie_in_footprint_box():
+    """For random blocks and poses, every tap that the plain splat yields
+    for a block lies inside the footprint box that K5 computes for it
+    (``footprint_boxes``, the kernel's corners-plus-radius box), at
+    rmax = 8; straddling blocks yield no tap.  The box decides whether K5
+    sums the block on its shared-memory tile (``splat_routes``)."""
+    from instancefusion_tpu_torch.ops.kernels import raycast as kray
+
+    rng = np.random.default_rng(0)
+    b3, nb = PCFG.block_size ** 3, PCFG.grid_size // PCFG.block_size
+    n_blocks = 20
+    coords = t(rng.integers(0, nb, (n_blocks, 3)).astype(np.int32))
+    sdf = t(rng.uniform(-1.0, 1.0, (n_blocks, b3)).astype(np.float32))
+    weight = t(rng.uniform(0.5, 6.0, (n_blocks, b3)).astype(np.float32))
+    color = t(rng.uniform(0.0, 1.0, (n_blocks, 3 * b3)).astype(np.float32))
+    bsz = PCFG.block_size * PCFG.voxel_size
+    centers = (n(coords) + 0.5) * bsz + np.asarray(PCFG.origin)
+    slots = torch.arange(n_blocks, dtype=torch.int32)
+    checked, routes = 0, {"tile": 0, "global": 0, "dropped": 0}
+    for trial in range(5):
+        target = centers[rng.integers(n_blocks)]
+        direction = rng.normal(size=3)
+        eye = target + rng.uniform(0.3, 3.0) * direction / np.linalg.norm(direction)
+        T_wc = t(_look_at(eye, target, rng, 0.4))
+        box, kept = kray.footprint_boxes(slots, torch.ones(n_blocks, dtype=torch.bool),
+                                         coords, T_wc, PINTR, PCFG, 8)
+        for name, count in kray.splat_routes(slots, torch.ones(n_blocks, dtype=torch.bool),
+                                             coords, T_wc, PINTR, PCFG, True, 8).items():
+            routes[name] += count
+        for i in range(n_blocks):
+            flat = torch.cat([f for f, _ in kray.splat_taps_ref(
+                slots[i:i + 1], torch.ones(1, dtype=torch.bool), coords, sdf, weight,
+                color, T_wc, PINTR, PCFG, True, 8)])
+            if not bool(kept[i]):
+                assert flat.numel() == 0
+                continue
+            py, px = flat // PINTR.width, flat % PINTR.width
+            x0, y0, x1, y1 = n(box[i]).tolist()
+            assert bool(((px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)).all()), (trial, i)
+            checked += flat.numel()
+    assert checked > 20000
+    assert routes["tile"] > 0 and routes["global"] > 0 and routes["dropped"] > 0, routes

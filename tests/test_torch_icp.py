@@ -320,3 +320,99 @@ def test_track_rgb_one_level_matches_reference(rgb_scene):
     np.testing.assert_allclose(n(out.T_wc), np.asarray(ref.T_wc), atol=5e-5)
     np.testing.assert_allclose(float(out.inliers), float(ref.inliers), rtol=1e-3)
     assert float(kicp.gn_iterations.last_wr) > 0.0
+
+
+# ------------------------------------------ K2: the association of one level
+
+
+@pytest.fixture(scope="module")
+def level_scene():
+    """Full-resolution target maps and intensity of pose 0 (textured,
+    world frame), and a 3-level source pyramid with intensity at pose 1."""
+    poses = jsyn.orbit_trajectory(30)
+    cfg = PreprocessConfig()
+    tf = jsyn.render_frame(poses[0], SMALL_INTR, texture=True)
+    sf = jsyn.render_frame(poses[1], SMALL_INTR, texture=True)
+    tgt = jpp.build_frame_pyramid(tf.depth, SMALL_INTR, cfg, 1)[0]
+    src = jpp.build_frame_pyramid(sf.depth, SMALL_INTR, cfg, 3,
+                                  jpp.rgb_to_intensity(sf.color))
+    out = dict(tv=jse3.transform_points(poses[0], tgt["vmap"]),
+               tn=jse3.rotate_vectors(poses[0], tgt["nmap"]), tval=tgt["valid"],
+               ti=jpp.rgb_to_intensity(tf.color), T0=poses[0])
+    out = {k: np.asarray(v) for k, v in out.items()}
+    out["src"] = [{k: np.asarray(v) for k, v in lvl.items()} for lvl in src]
+    return out
+
+
+def _level_inputs(s, lvl, with_rgb, seed):
+    """The level's source maps, the pose pair, the decimated targets and
+    (with_rgb) the level's photometric planes, as numpy arrays."""
+    st = 1 << lvl
+    T_est = _perturbed(s["T0"], seed=seed)
+    T_cw = np.asarray(jse3.se3_inverse(s["T0"]))
+    h, w = s["tval"].shape
+    dec = [x[:h // st * st:st, :w // st * st:st] for x in (s["tv"], s["tn"], s["tval"])]
+    planes = None
+    if with_rgb:
+        ti = s["ti"][:h // st * st:st, :w // st * st:st]
+        planes = (ti, *(np.asarray(g) for g in jicp.intensity_gradients(jnp.asarray(ti))))
+    return s["src"][lvl], T_est, T_cw, dec, planes
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+@pytest.mark.parametrize("lvl", [1, 2])
+def test_associate_gather_matches_reference(level_scene, lvl, with_rgb):
+    """Plain K2 at a level's stride (full-resolution targets) against the
+    reference's associate on the decimated targets: the same pixels and
+    values but for projections onto a .5 boundary, at most 0.1% (the rule
+    of test_associate_matches_reference); the planes equal wherever both
+    pick the same pixel."""
+    s = level_scene
+    src, T_est, T_cw, dec, planes = _level_inputs(s, lvl, with_rgb, seed=7 + lvl)
+    intr_l = SMALL_INTR.level(lvl)
+    ref = jicp.associate(src["vmap"], src["valid"], *dec, T_est, T_cw, intr_l, IcpConfig(),
+                         tgt_rgb=planes)
+    before = kicp.associate_gather.launches
+    a = kicp.associate_gather(
+        t(src["vmap"]).reshape(-1, 3), t(src["valid"]).reshape(-1), t(T_est), t(T_cw),
+        to_port(intr_l), t(s["tv"]), t(s["tn"]), t(s["tval"]), 1 << lvl,
+        None if planes is None else tuple(t(p) for p in planes))
+    assert kicp.associate_gather.launches == before  # plain on the CPU
+    ok_r, ok = np.asarray(ref[2]), n(a.ok)
+    assert ok_r.sum() > 0.3 * ok_r.size
+    np.testing.assert_array_equal(n(a.gate), ok.astype(np.float32))
+    same = (ok & ok_r & (n(a.q_w) == np.asarray(ref[0])).all(-1)
+            & (n(a.n_t) == np.asarray(ref[1])).all(-1))
+    moved = (ok != ok_r) | (ok & ok_r & ~same)
+    assert moved.sum() <= 1e-3 * ok_r.size, moved.sum()
+    if with_rgb:
+        for x, y in zip(a.rgb, ref[3][:3]):
+            np.testing.assert_array_equal(n(x)[same], np.asarray(y)[same])
+    else:
+        assert a.rgb is None
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+@pytest.mark.parametrize("lvl", [0, 1, 2])
+def test_associate_gather_equals_split_path(level_scene, lvl, with_rgb):
+    """Plain K2 is, bit for bit, ``association_inputs``, the decimated
+    targets (``ops/common.decimate``) and ``gather_target_maps_ref``: the
+    strided read of the full-resolution maps picks the same pixels."""
+    from instancefusion_tpu_torch.ops.common import decimate
+
+    s = level_scene
+    src, T_est, T_cw, _, planes = _level_inputs(s, lvl, with_rgb, seed=11 + lvl)
+    st, intr_l = 1 << lvl, to_port(SMALL_INTR.level(lvl))
+    sv, sval = t(src["vmap"]).reshape(-1, 3), t(src["valid"]).reshape(-1)
+    tg = (t(s["tv"]), t(s["tn"]), t(s["tval"]))
+    pl = None if planes is None else tuple(t(p) for p in planes)
+    a = kicp.associate_gather_ref(sv, sval, t(T_est), t(T_cw), intr_l, *tg, st, pl)
+    u, v, sel = kicp.association_inputs(sv, sval, t(T_est), t(T_cw), intr_l)
+    ref = kicp.gather_target_maps_ref(u, v, sel, *(decimate(x, st) for x in tg), pl)
+    assert int(a.ok.sum()) > 0.3 * a.ok.numel()
+    for x, y in zip(a[:3], ref[:3]):
+        assert torch.equal(x, y)
+    assert torch.equal(a.gate, ref[2].float())
+    if with_rgb:
+        for x, y in zip(a.rgb, ref[3]):
+            assert torch.equal(x, y)

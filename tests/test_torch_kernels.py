@@ -22,6 +22,7 @@ from instancefusion_tpu_torch.engine import slam
 from instancefusion_tpu_torch.geometry.camera import Intrinsics
 from instancefusion_tpu_torch.geometry.se3 import se3_exp, se3_inverse
 from instancefusion_tpu_torch.ops import blocks, icp, kernels, labels, preprocess
+from instancefusion_tpu_torch.ops.common import decimate
 from instancefusion_tpu_torch.ops.kernels import icp as kicp
 from instancefusion_tpu_torch.ops.kernels import labels as klab
 from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
@@ -79,17 +80,38 @@ def _level0(state, frame):
     return pyr[0]
 
 
-def test_gather_kernel_matches_plain(run):
+def _level_args(state, frame, lvl, intensity=False):
+    """K2's arguments at pyramid level `lvl`: the frame's source maps of
+    the level, the state's pose and prediction view, the level's
+    intrinsics, the full-resolution prediction and the stride; with
+    `intensity` also the level's photometric planes."""
+    pyr = preprocess.build_frame_pyramid(
+        frame.depth, CFG.intrinsics, CFG.preprocess, lvl + 1,
+        preprocess.rgb_to_intensity(frame.color) if intensity else None)
+    src = pyr[lvl]
+    pred = state.pred
+    args = (src["vmap"].reshape(-1, 3).contiguous(), src["valid"].reshape(-1).contiguous(),
+            state.T_wc.contiguous(), se3_inverse(state.pred_T_wc), CFG.intrinsics.level(lvl),
+            *(x.contiguous() for x in (pred.vertex_w, pred.normal_w, pred.valid)), 1 << lvl)
+    if not intensity:
+        return args
+    ti = decimate(preprocess.rgb_to_intensity(pred.color), 1 << lvl).contiguous()
+    return args, (ti, *icp.intensity_gradients(ti))
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2])
+def test_gather_kernel_matches_plain(run, lvl):
+    """The fused association (K2) at each pyramid level, bit-identical to
+    its plain version: q_w, n_t, ok and the gate."""
     state, frame, _ = run
-    src = _level0(state, frame)
-    u, v, sel = icp.association_inputs(src["vmap"], src["valid"], state.T_wc,
-                                       se3_inverse(state.pred_T_wc), CFG.intrinsics)
-    tg = [x.contiguous() for x in (state.pred.vertex_w, state.pred.normal_w, state.pred.valid)]
-    out = kicp.gather_target_maps(u, v, sel, *tg)
-    ref = kicp.gather_target_maps_ref(u, v, sel, *tg)
-    assert int(out[2].sum()) > 5000
-    for a, b in zip(out, ref):
-        assert torch.equal(a, b)  # bit-identical gather
+    args = _level_args(state, frame, lvl)
+    before = kicp.associate_gather.launches
+    out = kicp.associate_gather(*args)
+    ref = kicp.associate_gather_ref(*args)
+    assert kicp.associate_gather.launches == before + 1
+    assert int(out.ok.sum()) > 0.3 * out.ok.numel() and out.rgb is None
+    for a, b in zip(out[:4], ref[:4]):
+        assert torch.equal(a, b)  # bit-identical association
 
 
 def test_gn_kernel_matches_plain(run):
@@ -148,6 +170,30 @@ def test_splat_kernel_matches_plain(run):
     ik = kray.splat_depth(*args, with_color=True, depth_prior=d0, rmax=3)
     ir = kray.splat_depth_ref(*args, with_color=True, depth_prior=d0, rmax=3)
     assert kray.splat_planes.launches == before + 1
+    vk, vr = ik.valid, ir.valid
+    assert int(vr.sum()) > 5000
+    assert int((vk ^ vr).sum()) < 0.01 * int(vr.sum())
+    both = vk & vr
+    assert (ik.depth - ir.depth)[both].abs().max().item() < 1e-3
+    assert (ik.color - ir.color)[both].abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("with_color", [False, True])
+def test_splat_kernel_matches_plain_rmax8(run, with_color):
+    """K5 (and K5color) at rmax = 8, the bench's radius, on a slot list
+    that puts blocks on both routes (shared-memory tile and global): valid
+    sets within 1%, depth and color within 1e-3 where both are valid."""
+    state, frame, _ = run
+    vol, slots, valid, d0 = _slot_list(state, frame)
+    routes = kray.splat_routes(slots, valid, vol.block_coords, frame.T_wc, CFG.intrinsics,
+                               CFG.tsdf, with_color, 8)
+    assert routes["tile"] > 0 and routes["global"] > 0, routes
+    args = (slots, valid, vol.block_coords, vol.sdf, vol.weight, vol.color,
+            frame.T_wc, CFG.intrinsics, CFG.tsdf)
+    before = kray.splat_planes.launches_color
+    ik = kray.splat_depth(*args, with_color=with_color, depth_prior=d0, rmax=8)
+    ir = kray.splat_depth_ref(*args, with_color=with_color, depth_prior=d0, rmax=8)
+    assert kray.splat_planes.launches_color == before + int(with_color)
     vk, vr = ik.valid, ir.valid
     assert int(vr.sum()) > 5000
     assert int((vk ^ vr).sum()) < 0.01 * int(vr.sum())
@@ -245,19 +291,12 @@ def rgb_run():
 
 
 def _rgb_inputs(state, frame):
-    """Level-0 source maps and intensity of `frame`, its association (with
-    the photometric planes) against the state's prediction, and the GN
-    arguments."""
+    """Level-0 source maps and intensity of `frame`, the photometric planes
+    of the state's prediction, and K2's arguments (without the planes)."""
+    args, planes = _level_args(state, frame, 0, intensity=True)
     pyr = preprocess.build_frame_pyramid(frame.depth, CFG.intrinsics, CFG.preprocess, 1,
                                          preprocess.rgb_to_intensity(frame.color))
-    src = pyr[0]
-    ti = preprocess.rgb_to_intensity(state.pred.color).contiguous()
-    planes = (ti, *icp.intensity_gradients(ti))
-    T_cw = se3_inverse(state.pred_T_wc)
-    u, v, sel = icp.association_inputs(src["vmap"], src["valid"], state.T_wc, T_cw,
-                                       CFG.intrinsics)
-    tg = [x.contiguous() for x in (state.pred.vertex_w, state.pred.normal_w, state.pred.valid)]
-    return src, planes, T_cw, (u, v, sel, *tg)
+    return pyr[0], planes, args[3], args
 
 
 def test_rgb_path_launches(rgb_run):
@@ -270,16 +309,19 @@ def test_rgb_path_launches(rgb_run):
     assert launches["K6"][0] == 0
 
 
-def test_gather_rgb_kernel_matches_plain(rgb_run):
+@pytest.mark.parametrize("lvl", [0, 1, 2])
+def test_gather_rgb_kernel_matches_plain(rgb_run, lvl):
+    """The fused association with the level's photometric planes,
+    bit-identical to its plain version."""
     state, frame, _ = rgb_run
-    _, planes, _, gargs = _rgb_inputs(state, frame)
-    before = kicp.gather_target_maps.launches_rgb
-    out = kicp.gather_target_maps(*gargs, planes)
-    ref = kicp.gather_target_maps_ref(*gargs, planes)
-    assert kicp.gather_target_maps.launches_rgb == before + 1
-    assert int(out[2].sum()) > 5000
-    for a, b in zip(out[:3] + out[3], ref[:3] + ref[3]):
-        assert torch.equal(a, b)  # bit-identical gather
+    args, planes = _level_args(state, frame, lvl, intensity=True)
+    before = kicp.associate_gather.launches_rgb
+    out = kicp.associate_gather(*args, planes)
+    ref = kicp.associate_gather_ref(*args, planes)
+    assert kicp.associate_gather.launches_rgb == before + 1
+    assert int(out.ok.sum()) > 0.3 * out.ok.numel()
+    for a, b in zip(out[:4] + out.rgb, ref[:4] + ref.rgb):
+        assert torch.equal(a, b)  # bit-identical association
 
 
 def test_gn_rgb_kernel_matches_plain(rgb_run):
@@ -287,7 +329,7 @@ def test_gn_rgb_kernel_matches_plain(rgb_run):
     trust-fraction weight agrees and is non-zero."""
     state, frame, _ = rgb_run
     src, planes, T_cw, gargs = _rgb_inputs(state, frame)
-    q, n_t, ok, (i_t, gx_t, gy_t) = kicp.gather_target_maps(*gargs, planes)
+    q, n_t, ok, _, (i_t, gx_t, gy_t) = kicp.associate_gather(*gargs, planes)
     args = (src["vmap"].reshape(-1, 3).contiguous(), src["nmap"].reshape(-1, 3).contiguous(),
             q, n_t, (src["valid"].reshape(-1) & ok).float(), state.T_wc)
     kw = dict(inner_n=4, dist_thresh=0.1, angle_thresh=0.34, huber_delta=0.0,
@@ -309,7 +351,7 @@ def test_normal_equations_kernel_matches_plain(rgb_run, huber_delta):
     exact, residual sum within rtol 1e-3."""
     state, frame, _ = rgb_run
     src, _, _, gargs = _rgb_inputs(state, frame)
-    q, n_t, ok = kicp.gather_target_maps(*gargs)
+    q, n_t, ok, _, _ = kicp.associate_gather(*gargs)
     p_w = (src["vmap"].reshape(-1, 3) @ state.T_wc[:3, :3].T + state.T_wc[:3, 3]).contiguous()
     mask = (src["valid"].reshape(-1) & ok & ((p_w - q).norm(dim=-1) < 0.1)).float()
     before = kicp.normal_equations.launches
@@ -328,7 +370,7 @@ def test_plain_versions_launch_nothing(rgb_run):
     state, frame, _ = rgb_run
     src, planes, T_cw, gargs = _rgb_inputs(state, frame)
     counts = {k: fn.launches for k, fn in kernels.wrappers().items()}
-    q, n_t, ok, (i_t, gx_t, gy_t) = kicp.gather_target_maps_ref(*gargs, planes)
+    q, n_t, ok, _, (i_t, gx_t, gy_t) = kicp.associate_gather_ref(*gargs, planes)
     kicp.gn_iterations_ref(
         src["vmap"].reshape(-1, 3), src["nmap"].reshape(-1, 3), q, n_t, ok.float(),
         state.T_wc, inner_n=2, dist_thresh=0.1, angle_thresh=0.34, huber_delta=0.0,
