@@ -49,10 +49,11 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    plain version and, where one PyTorch call does the same work, that call
    (K2, the whole association of a level, exactly at levels 0-2 with and
    without the photometric planes, beside the parent's split association;
-   K3 with the photometric planes, K5 with color and its route counts, K6,
-   and K8 on the march path's last state and the next frame's association,
-   with and without color, among them; no kernel may launch while a plain
-   version is timed);
+   K1 also at bilateral radii 5 and 8; K3, with and without the photometric
+   planes, timed at 1, 2 and the level's steps, each call one device
+   launch; K5 with color and its route counts, K6, and K8 on the march
+   path's last state and the next frame's association, with and without
+   color, among them; no kernel may launch while a plain version is timed);
 10. the packaged segmentation head at 640x480 on the card, held against the
    same head on the CPU: outputs, the grouping of the same outputs, and the
    whole segmentation on frames whose grouping does not hinge on tied
@@ -153,9 +154,8 @@ SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
 # The __global__ functions of each kernel, whose device time the profiler
 # sums for the kernel's device_ms.
 DEVICE_KERNELS = {"K1": ("preprocess_kernel",), "K2": ("associate_kernel",),
-                  "K2rgb": ("associate_kernel",),
-                  "K3": ("gn_reduce_kernel", "gn_solve_kernel"),
-                  "K3rgb": ("gn_reduce_kernel", "gn_solve_kernel"),
+                  "K2rgb": ("associate_kernel",), "K3": ("gn_kernel",),
+                  "K3rgb": ("gn_kernel",),
                   "K4": ("integrate_kernel",), "K5": ("splat_kernel",),
                   "K5color": ("splat_kernel",), "K6": ("ne_reduce_kernel", "ne_finish_kernel"),
                   "K7": ("label_vote_kernel",), "K8": ("tsdf_update_kernel",)}
@@ -555,9 +555,11 @@ def n_distinct(pix, mask) -> int:
 
 def kernel_times(k, fn, reps: int):
     """A kernel's call time (``time_ms``: stream time per call, host gaps
-    included) and its device time per call: ``torch.profiler``'s device
-    time of the kernel's ``__global__`` functions (DEVICE_KERNELS) over
-    `reps` more calls.  Their difference is the host's share of a call."""
+    included), its device time per call (``torch.profiler``'s device time of
+    the kernel's ``__global__`` functions, DEVICE_KERNELS, over `reps` more
+    calls) and its device launches per call (the profiler's count of those
+    functions).  The difference of the two times is the host's share of a
+    call."""
     from torch.profiler import ProfilerActivity, profile
 
     ms = time_ms(fn, reps)
@@ -567,22 +569,25 @@ def kernel_times(k, fn, reps: int):
             fn()
         torch.cuda.synchronize()
     pattern = re.compile(r"\b(" + "|".join(DEVICE_KERNELS[k]) + r")\b")
-    dev_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in prof.key_averages()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA and pattern.search(ev.key))
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA and pattern.search(ev.key)]
+    dev_us = sum(getattr(ev, "self_device_time_total", 0.0) for ev in events)
     check(dev_us > 0.0, f"{k}: the profiler saw no device time of {DEVICE_KERNELS[k]}")
-    return ms, dev_us / 1e3 / reps
+    return ms, dev_us / 1e3 / reps, sum(ev.count for ev in events) / reps
 
 
 def record(k, launches, err, times, plain_ms, n_bytes, n_flops, library_ms, note):
-    """A kernel's record; `times` is ``kernel_times``' (call ms, device ms)."""
-    ms, dev_ms = times
+    """A kernel's record; `times` is ``kernel_times``' (call ms, device ms,
+    device launches per call)."""
+    ms, dev_ms, dev_launches = times
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     rec = {"name": NAMES[k], "route": "cuda", "source": SOURCES[k],
            "replaces": REPLACES[k], "launches": launches[k],
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-           "device_ms": dev_ms}
-    print(f"{k} {NAMES[k]}: kernel_ms {ms!r} device_ms {dev_ms!r} plain_ms {plain_ms!r} "
+           "device_ms": dev_ms, "device_launches_per_call": dev_launches}
+    print(f"{k} {NAMES[k]}: kernel_ms {ms!r} device_ms {dev_ms!r} ({dev_launches!r} device "
+          f"launches a call) plain_ms {plain_ms!r} "
           f"library_ms {library_ms!r} bound_ms {b_ms!r} ({b_by}) max_abs_err {err!r}; "
           f"{note}", flush=True)
     return rec
@@ -649,6 +654,28 @@ def splat_record(k, cfg, slots, valid, coords, maps, T, d0, with_color, launches
         f"tolerance: valid XOR < 1%, depth < 1e-3 m where both valid; library = one "
         f"index_add_ of the precomputed taps",
     )
+
+
+def gn_times(k, args, kw):
+    """``kernel_times`` of K3 (or K3rgb) at 1, 2 and the call's own
+    ``inner_n`` steps, by step count; fails unless every call is one device
+    launch (gn_kernel runs all its steps in one cooperative launch)."""
+    from instancefusion_tpu_torch.ops.kernels import icp as kicp
+
+    out = {}
+    for m in sorted({1, 2, kw["inner_n"]}):
+        mkw = dict(kw, inner_n=m)
+        out[m] = kernel_times(k, lambda: kicp.gn_iterations(*args, **mkw), 200)
+        # The profiler may miss a launch at its window's edge (it saw 199 of
+        # 200 once), never add one: one launch a call rounds to 1, at most 1.
+        check(round(out[m][2]) == 1 and out[m][2] <= 1.0,
+              f"{k} at inner_n={m}: {out[m][2]} device launches a call, expected 1")
+    return out
+
+
+def gn_steps_note(times) -> str:
+    return "call/device ms by inner_n: " + ", ".join(
+        f"{m}: {t[0]!r}/{t[1]!r}" for m, t in times.items()) + " (one device launch a call)"
 
 
 def association_levels(cfg, state, pyr, rgb: bool):
@@ -781,13 +808,14 @@ def kernel_phase(cfg, state, frame, launches):
     check(abs(nin_k - nin_r) <= 1e-3 * max(nin_r, 1.0),
           f"K3 inliers {nin_k} vs plain {nin_r}")
     n_gate = float(gate.sum())
+    times = gn_times("K3", args, kw)
     recs.append(record(
-        "K3", launches, err,
-        kernel_times("K3", lambda: kicp.gn_iterations(*args, **kw), 200),
+        "K3", launches, err, times[inner_n],
         plain_time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
         n * (4 * 12 + 4) + 64 + 72, GN_FLOPS_PER_PIXEL * n_gate * inner_n, None,
         f"N={n}, {n_gate} gated, inner_n={inner_n}, inliers {nin_k} vs {nin_r}, "
-        f"res {float(rs_k)!r} vs {float(rs_r)!r}; tolerance: pose 5e-5",
+        f"res {float(rs_k)!r} vs {float(rs_r)!r}; {gn_steps_note(times)}; tolerance: "
+        f"pose 5e-5",
     ))
 
     # K4 on the frame's band blocks, at the frame's own pose, a color frame.
@@ -882,16 +910,16 @@ def rgb_kernel_phase(cfg, state, frame, last, launches):
           f"K3rgb inliers {nin_k} vs plain {nin_r}")
     check(wr_k > 0.0, f"K3rgb trust-fraction weight {wr_k}")
     n_gate, n_rgb = float(gate.sum()), float(rgb_gate.sum())
+    times = gn_times("K3rgb", args, kw)
     recs.append(record(
-        "K3rgb", launches, err,
-        kernel_times("K3rgb", lambda: kicp.gn_iterations(*args, **kw), 200),
+        "K3rgb", launches, err, times[inner_n],
         plain_time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
         n * 18 * 4 + 3 * 64 + 12,
         (GN_FLOPS_PER_PIXEL * n_gate + RGB_FLOPS_PER_PIXEL * n_rgb) * inner_n, None,
         f"N={n}, {n_gate} gated, {n_rgb} photometric, inner_n={inner_n}, inliers "
         f"{nin_k} vs {nin_r}, res {float(rs_k)!r} vs {float(rs_r)!r}, wr {wr_k!r}; 18 "
-        f"floats a pixel read once; tolerance: pose 5e-5, inliers 1e-3 relative; "
-        f"library: none",
+        f"floats a pixel read once; {gn_steps_note(times)}; tolerance: pose 5e-5, "
+        f"inliers 1e-3 relative; library: none",
     ))
 
     # K6: the normal equations of one linearization at that pose.
@@ -1014,7 +1042,9 @@ def tsdf_update_record(cfg, state, frame, launches):
 
 
 def preprocess_record(cfg, frame, launches):
-    """K1 against its plain version on the frame's raw depth."""
+    """K1 against its plain version on the frame's raw depth, at the
+    configuration's radius and at radii 5 and 8 (the runtime-radius
+    instance)."""
     from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
 
     intr, pcfg = cfg.intrinsics, cfg.preprocess
@@ -1028,6 +1058,19 @@ def preprocess_record(cfg, frame, launches):
     check(mism == 0, f"K1 valid differs from the plain version on {mism} pixels")
     check(n_err <= 1e-3, f"K1 nmap differs from the plain version by {n_err}")
     hw = intr.height * intr.width
+    radii = []
+    for r in (5, 8):  # the runtime-radius instance
+        rcfg = dataclasses.replace(pcfg, bilateral_radius=r)
+        out_r = kpre.fused_preprocess(frame.depth, intr, rcfg)
+        ref_r = kpre.fused_preprocess_ref(frame.depth, intr, rcfg)
+        e = [(out_r[i] - ref_r[i]).abs().max().item() for i in (0, 1)]
+        e_n = (out_r[2] - ref_r[2])[ref_r[3]].abs().max().item()
+        m = int((out_r[3] != ref_r[3]).sum())
+        check(max(e) <= 1e-5 and m == 0 and e_n <= 1e-3,
+              f"K1 at radius {r}: df/vmap err {e}, nmap err {e_n}, valid mismatches {m}")
+        t = kernel_times("K1", lambda: kpre.fused_preprocess(frame.depth, intr, rcfg), 50)
+        radii.append(f"radius {r}: call {t[0]!r} ms, device {t[1]!r} ms, df/vmap max err "
+                     f"{e}, nmap {e_n!r}, valid mismatches {m}")
     return record(
         "K1", launches, max(errs + [n_err]),
         kernel_times("K1", lambda: kpre.fused_preprocess(frame.depth, intr, pcfg), 200),
@@ -1036,8 +1079,8 @@ def preprocess_record(cfg, frame, launches):
         f"{intr.height}x{intr.width}, radius {pcfg.bilateral_radius}, "
         f"{int(v.sum())} valid pixels; df/vmap max err {errs}, nmap max err "
         f"{n_err!r} on valid pixels, valid mismatches {mism}; tolerance: df and "
-        f"vmap 1e-5, valid equal, nmap 1e-3 on valid pixels; library: none "
-        f"(a bilateral filter is no single PyTorch call)",
+        f"vmap 1e-5, valid equal, nmap 1e-3 on valid pixels; {'; '.join(radii)}; "
+        f"library: none (a bilateral filter is no single PyTorch call)",
     )
 
 

@@ -22,17 +22,15 @@ from instancefusion_tpu_torch.geometry.camera import Intrinsics, project
 from instancefusion_tpu_torch.geometry.se3 import cam_row, se3_exp
 from instancefusion_tpu_torch.ops.kernels import _build
 
-# Fixed grid of the K3 and K6 reductions: the per-block partials are added
-# in this order by the solve and finish kernels, so the sums do not depend
-# on scheduling.
-GN_BLOCKS = 264  # 2 per SM on an H100
 _ROW = 64  # partials row stride (floats): 29 geometric + 27 photometric sums
 _NE_OUT = 44  # K6 output: H 36, b 6, inliers, sum |r| w
+_GN_OUT = 19  # K3 output: T 16, then the last step's inliers, sum |r| w, wr
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ifl_associate": [_P, _P, _I, _P, _P] + [_F] * 4 + [_I] * 2 + [_P] * 6
                      + [_I] * 4 + [_P, _P],
+    "ifl_gn_grid": [_P],
     "ifl_gn_iterations": [_P] * 11 + [_I, _P, _P, _I, _P, _I] + [_F] * 8 + [_P],
     "ifl_normal_equations": [_P] * 4 + [_I, _F, _P, _I, _P, _P],
 }
@@ -40,6 +38,25 @@ _SIGNATURES = {
 
 def _lib():
     return _build.load("icp", _SIGNATURES)
+
+
+# Per device: (K3's grid, the partials workspace of 2 x grid rows).
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev) -> tuple[int, torch.Tensor]:
+    """K3's grid on ``dev`` (``ifl_gn_grid``: the blocks the card holds at
+    once) and the partials workspace that K3 and K6 share there: 2 x grid
+    rows of ``_ROW`` floats, K3's step-parity double buffer.  Made once a
+    device; the kernels use it in stream order."""
+    ws = _WORKSPACE.get(dev)
+    if ws is None:
+        grid = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            _build.check(_lib().ifl_gn_grid(ctypes.byref(grid)), "gn_grid")
+        ws = _WORKSPACE[dev] = (grid.value, torch.empty(
+            (2 * grid.value, _ROW), dtype=torch.float32, device=dev))
+    return ws
 
 
 def _check_f32(**tensors) -> None:
@@ -215,12 +232,12 @@ def normal_equations(p_w, n_t, q_w, mask, huber_delta: float):
     _check_f32(p_w=p_w, n_t=n_t, q_w=q_w, mask=mask)
     _build.check_tensors(dict(p_w=p_w, n_t=n_t, q_w=q_w, mask=mask), p_w.device)
     dev = p_w.device
-    partials = torch.empty((GN_BLOCKS, _ROW), dtype=torch.float32, device=dev)
+    grid, partials = _workspace(dev)
     out = torch.empty((_NE_OUT,), dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _lib().ifl_normal_equations(
         p(p_w), p(n_t), p(q_w), p(mask), p_w.shape[0], huber_delta, p(partials),
-        GN_BLOCKS, p(out), _build.stream_handle(),
+        grid, p(out), _build.stream_handle(),
     )
     _build.check(err, "normal_equations")
     normal_equations.launches += 1
@@ -313,7 +330,7 @@ def gn_iterations_ref(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
 def gn_iterations(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
                   dist_thresh, angle_thresh, huber_delta, damping, min_valid,
                   rgb=None, T_pred_cw=None, rgb_intr=None, rgb_weight=0.0):
-    """``inner_n`` fixed-correspondence Gauss-Newton steps.
+    """``inner_n`` fixed-correspondence Gauss-Newton steps, in one launch.
 
     src_v, src_n: f32[N, 3] source vertices/normals (camera frame);
     q_w, n_t: f32[N, 3] associated targets (world); gate: f32[N] 0/1;
@@ -323,8 +340,11 @@ def gn_iterations(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
     trust-fraction weight of the last step is left in
     ``gn_iterations.last_wr`` (a device scalar).  Returns (T f32[4, 4],
     inliers f32[], res_sum f32[]), all on the device: on CUDA the pose
-    stays in device memory throughout.
+    stays in device memory throughout, and the pose, the stats and
+    ``last_wr`` are views of the call's one allocation.
     """
+    if inner_n < 1:
+        raise ValueError(f"inner_n must be at least 1, not {inner_n}")
     kw = dict(inner_n=inner_n, dist_thresh=dist_thresh,
               angle_thresh=angle_thresh, huber_delta=huber_delta,
               damping=damping, min_valid=min_valid)
@@ -337,7 +357,8 @@ def gn_iterations(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
             gn_iterations.last_wr = wr
         return T, nin, rsum
     dev = src_v.device
-    tensors = dict(src_v=src_v, src_n=src_n, q_w=q_w, n_t=n_t, gate=gate)
+    T_init = T_init.to(torch.float32).contiguous()
+    tensors = dict(src_v=src_v, src_n=src_n, q_w=q_w, n_t=n_t, gate=gate, T_init=T_init)
     if rgb is not None:
         T_pred_cw = T_pred_cw.to(torch.float32).contiguous()
         planes = dict(zip(("i_src", "i_t", "gx_t", "gy_t", "rgb_gate"), rgb))
@@ -345,15 +366,14 @@ def gn_iterations(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
         tensors.update(planes)
     _check_f32(**tensors)
     _build.check_tensors(tensors, dev)
-    T = T_init.to(torch.float32).contiguous().clone()
-    partials = torch.empty((GN_BLOCKS, _ROW), dtype=torch.float32, device=dev)
-    stats = torch.zeros((3,), dtype=torch.float32, device=dev)
+    grid, partials = _workspace(dev)
+    out = torch.empty((_GN_OUT,), dtype=torch.float32, device=dev)
     p = _build.ptr
     rgb_ptrs = [p(x) for x in rgb] + [p(T_pred_cw)] if rgb is not None else [None] * 6
     fx, fy = rgb_intr if rgb is not None else (0.0, 0.0)
     err = _lib().ifl_gn_iterations(
         p(src_v), p(src_n), p(q_w), p(n_t), p(gate), *rgb_ptrs, src_v.shape[0],
-        p(T), p(partials), GN_BLOCKS, p(stats), inner_n, dist_thresh,
+        p(T_init), p(partials), grid, p(out), inner_n, dist_thresh,
         angle_thresh, huber_delta, damping, float(min_valid), fx, fy,
         rgb_weight if rgb is not None else 0.0, _build.stream_handle(),
     )
@@ -361,8 +381,8 @@ def gn_iterations(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
     gn_iterations.launches += 1
     if rgb is not None:
         gn_iterations.launches_rgb += 1
-        gn_iterations.last_wr = stats[2]
-    return T, stats[0], stats[1]
+        gn_iterations.last_wr = out[18]
+    return out[:16].view(4, 4), out[16], out[17]
 
 
 gn_iterations.launches = 0

@@ -262,6 +262,46 @@ def test_gn_rgb_plain_matches_pallas():
     assert np.abs(n(T_geo) - n(T)).max() > 1e-4
 
 
+@pytest.mark.parametrize("inner_n", [1, 2, 4])
+def test_gn_plain_matches_pallas(inner_n):
+    """Plain K3 without the photometric planes against the reference's
+    fused GN kernel in interpret mode: pose atol 5e-5 and inliers within 1,
+    for 1, 2 and 4 steps (one launch of the card's
+    kernel each).  The points are those of test_gn_rgb_plain_matches_pallas;
+    the normals are random unit vectors facing the camera, not the radial
+    ones there: with n parallel to p the rotation block of J = [n, p x n]
+    vanishes, and on such a system the reference's own jnp loop and its
+    kernel differ by up to 6e-5 after one step."""
+    from instancefusion_tpu.ops.pallas.icp import gn_iterations as pallas_gn
+
+    rng = np.random.default_rng(5)
+    n_pts = 4096
+    q = rng.uniform(-1, 1, (n_pts, 3)).astype(np.float32)
+    q[:, 2] += 3.0
+    nrm = rng.normal(size=(n_pts, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm[nrm[:, 2] > 0] *= -1
+    T_true = np.asarray(jse3.se3_exp(jnp.array([0.02, -0.01, 0.03, 0.01, -0.02, 0.015])))
+    R, tt = T_true[:3, :3], T_true[:3, 3]
+    v = ((q - tt) @ R).astype(np.float32)
+    nm = (nrm @ R).astype(np.float32)
+    cfg = IcpConfig(huber_delta=0.02)
+    kw = dict(inner_n=inner_n, dist_thresh=cfg.dist_thresh, angle_thresh=cfg.angle_thresh,
+              huber_delta=cfg.huber_delta, damping=cfg.damping, min_valid=cfg.min_valid)
+    gate, eye = np.ones(n_pts, np.float32), np.eye(4, dtype=np.float32)
+    T_ref, nin_ref, _ = pallas_gn(v, nm, q, nrm, gate, eye, **kw, interpret=True)
+    args = [t(x) for x in (v, nm, q, nrm, gate, eye)]
+    T, nin, _ = kicp.gn_iterations_ref(*args, **kw)
+    np.testing.assert_allclose(n(T), np.asarray(T_ref), atol=5e-5)
+    assert abs(float(nin) - float(nin_ref)) < 1
+    # The wrapper runs the same plain steps on the CPU and counts no launch.
+    before = kicp.gn_iterations.launches
+    T_w, _, _ = kicp.gn_iterations(*args, **kw)
+    assert torch.equal(T_w, T) and kicp.gn_iterations.launches == before
+    # Each step moves the pose towards the truth.
+    assert np.abs(n(T) - T_true).max() < np.abs(eye - T_true).max()
+
+
 @pytest.mark.parametrize("huber_delta", [0.0, 0.005])
 def test_normal_equations_plain_matches_pallas(huber_delta):
     """Plain K6 against the reference's reduction kernel in interpret mode on

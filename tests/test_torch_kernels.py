@@ -114,9 +114,9 @@ def test_gather_kernel_matches_plain(run, lvl):
         assert torch.equal(a, b)  # bit-identical association
 
 
-def test_gn_kernel_matches_plain(run):
-    """Pose within 5e-5 of the plain steps (tests/test_pallas.py's bound)."""
-    state, frame, _ = run
+def _gn_inputs(state, frame):
+    """K3's arguments on the main path's state: level 0 of `frame`
+    associated at a seeded perturbation of the state's pose."""
     src = _level0(state, frame)
     xi = torch.tensor(np.random.default_rng(0).normal(
         scale=(0.01,) * 3 + (0.005,) * 3), dtype=torch.float32, device=state.T_wc.device)
@@ -124,10 +124,21 @@ def test_gn_kernel_matches_plain(run):
     q, n_t, ok = icp.associate(src["vmap"], src["valid"], state.pred.vertex_w,
                                state.pred.normal_w, state.pred.valid, T_est,
                                se3_inverse(state.pred_T_wc), CFG.intrinsics)
-    args = (src["vmap"].reshape(-1, 3).contiguous(), src["nmap"].reshape(-1, 3).contiguous(),
+    return (src["vmap"].reshape(-1, 3).contiguous(), src["nmap"].reshape(-1, 3).contiguous(),
             q, n_t, (src["valid"].reshape(-1) & ok).float(), T_est)
-    kw = dict(inner_n=4, dist_thresh=0.1, angle_thresh=0.34, huber_delta=0.0,
-              damping=1e-6, min_valid=60)
+
+
+GN_KW = dict(dist_thresh=0.1, angle_thresh=0.34, huber_delta=0.0, damping=1e-6,
+             min_valid=60)
+
+
+@pytest.mark.parametrize("inner_n", [1, 2, 4, 10])
+def test_gn_kernel_matches_plain(run, inner_n):
+    """Pose within 5e-5 of the plain steps (tests/test_pallas.py's bound)
+    and inliers within 1e-3, for 1 to 10 steps in the one launch."""
+    state, frame, _ = run
+    args = _gn_inputs(state, frame)
+    kw = dict(GN_KW, inner_n=inner_n)
     T_k, nin_k, _ = kicp.gn_iterations(*args, **kw)
     T_r, nin_r, _ = kicp.gn_iterations_ref(*args, **kw)
     assert (T_k - T_r).abs().max().item() < 5e-5
@@ -202,18 +213,21 @@ def test_splat_kernel_matches_plain_rmax8(run, with_color):
     assert (ik.color - ir.color)[both].abs().max().item() < 1e-3
 
 
-def test_preprocess_kernel_matches_plain(run):
+@pytest.mark.parametrize("radius", [1, 2, 4, 5, 8])
+def test_preprocess_kernel_matches_plain(run, radius):
     """df and vmap within 1e-5, valid equal, nmap within 1e-3 on valid
-    pixels (tests/test_pallas.py's bounds), on noisy depth with dropouts."""
+    pixels (tests/test_pallas.py's bounds), on noisy depth with dropouts,
+    at the compile-time radii (1-4) and the runtime-radius instance (5, 8)."""
     _, frame, _ = run
+    cfg = dataclasses.replace(CFG.preprocess, bilateral_radius=radius)
     g = torch.Generator(device="cuda").manual_seed(0)
     depth = frame.depth + 0.004 * torch.randn(frame.depth.shape, generator=g,
                                               device="cuda") * (frame.depth > 0)
     depth = torch.where(torch.rand(depth.shape, generator=g, device="cuda") < 0.02,
                         torch.zeros_like(depth), depth)
     before = kpre.fused_preprocess.launches
-    out = kpre.fused_preprocess(depth, CFG.intrinsics, CFG.preprocess)
-    ref = kpre.fused_preprocess_ref(depth, CFG.intrinsics, CFG.preprocess)
+    out = kpre.fused_preprocess(depth, CFG.intrinsics, cfg)
+    ref = kpre.fused_preprocess_ref(depth, CFG.intrinsics, cfg)
     assert kpre.fused_preprocess.launches == before + 1
     torch.testing.assert_close(out[0], ref[0], atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(out[1], ref[1], atol=1e-5, rtol=1e-5)
@@ -324,25 +338,96 @@ def test_gather_rgb_kernel_matches_plain(rgb_run, lvl):
         assert torch.equal(a, b)  # bit-identical association
 
 
-def test_gn_rgb_kernel_matches_plain(rgb_run):
-    """Pose within 5e-5 of the plain steps and inliers within 1e-3; the
-    trust-fraction weight agrees and is non-zero."""
-    state, frame, _ = rgb_run
+def _gn_rgb_inputs(state, frame):
+    """K3's arguments and photometric keywords on the photometric path's
+    state: level 0 of `frame` associated with the prediction's planes."""
     src, planes, T_cw, gargs = _rgb_inputs(state, frame)
     q, n_t, ok, _, (i_t, gx_t, gy_t) = kicp.associate_gather(*gargs, planes)
     args = (src["vmap"].reshape(-1, 3).contiguous(), src["nmap"].reshape(-1, 3).contiguous(),
             q, n_t, (src["valid"].reshape(-1) & ok).float(), state.T_wc)
-    kw = dict(inner_n=4, dist_thresh=0.1, angle_thresh=0.34, huber_delta=0.0,
-              damping=1e-6, min_valid=60,
-              rgb=(src["intensity"].reshape(-1).contiguous(), i_t, gx_t, gy_t, ok.float()),
-              T_pred_cw=T_cw, rgb_intr=(CFG.intrinsics.fx, CFG.intrinsics.fy),
-              rgb_weight=0.1)
+    rgb_kw = dict(rgb=(src["intensity"].reshape(-1).contiguous(), i_t, gx_t, gy_t, ok.float()),
+                  T_pred_cw=T_cw, rgb_intr=(CFG.intrinsics.fx, CFG.intrinsics.fy),
+                  rgb_weight=0.1)
+    return args, rgb_kw
+
+
+@pytest.mark.parametrize("inner_n", [1, 2, 4, 10])
+def test_gn_rgb_kernel_matches_plain(rgb_run, inner_n):
+    """Pose within 5e-5 of the plain steps and inliers within 1e-3; the
+    trust-fraction weight agrees and is non-zero."""
+    state, frame, _ = rgb_run
+    args, rgb_kw = _gn_rgb_inputs(state, frame)
+    kw = dict(GN_KW, inner_n=inner_n, **rgb_kw)
     T_k, nin_k, _ = kicp.gn_iterations(*args, **kw)
     wr_k = float(kicp.gn_iterations.last_wr)
     T_r, nin_r, _ = kicp.gn_iterations_ref(*args, **kw)
     assert (T_k - T_r).abs().max().item() < 5e-5
     assert abs(float(nin_k) - float(nin_r)) <= 1e-3 * float(nin_r)
     assert wr_k > 0.0
+
+
+def _gn_case(request, with_rgb):
+    """K3's arguments and keywords (4 steps), geometric on the main path's
+    state or with the photometric planes on the photometric path's."""
+    if with_rgb:
+        state, frame, _ = request.getfixturevalue("rgb_run")
+        args, rgb_kw = _gn_rgb_inputs(state, frame)
+        return args, dict(GN_KW, inner_n=4, **rgb_kw)
+    state, frame, _ = request.getfixturevalue("run")
+    return _gn_inputs(state, frame), dict(GN_KW, inner_n=4)
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_gn_kernel_is_deterministic(request, with_rgb):
+    """The same call twice gives the same pose and stats, bit for bit: no
+    float atomics, and every block adds the partials in one order."""
+    args, kw = _gn_case(request, with_rgb)
+    first = kicp.gn_iterations(*args, **kw)
+    wr = kicp.gn_iterations.last_wr if with_rgb else None
+    second = kicp.gn_iterations(*args, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    if with_rgb:
+        assert torch.equal(wr, kicp.gn_iterations.last_wr)
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_gn_kernel_is_one_launch(request, with_rgb):
+    """A K3 call is one device launch of gn_kernel, whatever inner_n."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args, kw = _gn_case(request, with_rgb)
+    kicp.gn_iterations(*args, **kw)
+    torch.cuda.synchronize()
+    reps = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kicp.gn_iterations(*args, **kw)
+        torch.cuda.synchronize()
+    launched = {ev.key: ev.count for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count > 0}
+    assert len(launched) == 1, launched
+    (name, count), = launched.items()
+    # The profiler may miss an event at its window's edge, never add one.
+    assert "gn_kernel" in name and reps - 1 <= count <= reps, launched
+
+
+@pytest.mark.parametrize("with_rgb", [False, True])
+def test_gn_kernel_replays_in_cuda_graph(request, with_rgb):
+    """One K3 call captured in a CUDA graph and replayed gives the eager
+    pose and stats: the cooperative launch can be captured."""
+    args, kw = _gn_case(request, with_rgb)
+    eager = kicp.gn_iterations(*args, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kicp.gn_iterations(*args, **kw)
+    for x in captured:
+        x.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, captured):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("huber_delta", [0.0, 0.02])

@@ -61,12 +61,10 @@ def test_decimate_matches_reference(s):
                                   np.asarray(jcommon.decimate(jnp.asarray(x), s)))
 
 
-def test_fused_preprocess_flag_matches_pallas_interpret(noisy_depth):
-    """With use_pallas set (bench.py's setting) level 0 comes from K1's
-    wrapper, here its plain version, held to the reference's fused Pallas
-    kernel in interpret mode at tests/test_pallas.py's tolerances."""
-    depth, _ = noisy_depth
-    cfg = dataclasses.replace(PreprocessConfig(), use_pallas=True)
+def _assert_level0_matches_pallas(depth, cfg):
+    """Level 0 of the port's pyramid with ``cfg`` (K1's wrapper, its plain
+    version here) against the reference's fused Pallas kernel in interpret
+    mode, at tests/test_pallas.py's tolerances."""
     df, vmap, nmap, valid = jpp_pl.fused_preprocess(jnp.asarray(depth), SMALL_INTR, cfg,
                                                     interpret=True)
     out = ppp.build_frame_pyramid(t(depth), to_port(SMALL_INTR), to_port(cfg), 1)[0]
@@ -76,3 +74,40 @@ def test_fused_preprocess_flag_matches_pallas_interpret(noisy_depth):
     v = np.asarray(valid)
     assert v.sum() > 5000
     np.testing.assert_allclose(n(out["nmap"])[v], np.asarray(nmap)[v], atol=1e-3)
+
+
+def test_fused_preprocess_flag_matches_pallas_interpret(noisy_depth):
+    """With use_pallas set (bench.py's setting) level 0 comes from K1's
+    wrapper, here its plain version, held to the reference's fused Pallas
+    kernel in interpret mode at tests/test_pallas.py's tolerances."""
+    depth, _ = noisy_depth
+    _assert_level0_matches_pallas(depth, dataclasses.replace(PreprocessConfig(),
+                                                             use_pallas=True))
+
+
+@pytest.mark.parametrize("radius", [1, 5])
+def test_fused_preprocess_radius_matches_pallas_interpret(noisy_depth, radius):
+    """The same at other bilateral radii: K1's compile-time radii end at 4,
+    and radius 5 takes its runtime-radius instance on the card."""
+    depth, _ = noisy_depth
+    _assert_level0_matches_pallas(depth, dataclasses.replace(
+        PreprocessConfig(), use_pallas=True, bilateral_radius=radius))
+
+
+def test_preprocess_tile_plan():
+    """K1's tile on the card: 16 output rows at the compile-time radii and
+    while the runtime-radius tile fits 48 KB, then 8 rows up to the 227 KB a
+    block can have; past that a ValueError that names the limit.  No radius
+    goes to the plain version on the card."""
+    from instancefusion_tpu_torch.ops.kernels import preprocess as kpre
+
+    assert kpre.tile_plan(2) == 16 and kpre.smem_bytes(2, 16) == 4 * (38 * 22 + 34 * 18)
+    for r in (0, 1, 4, 5, 8, 30):
+        assert kpre.tile_plan(r) == 16 and kpre.smem_bytes(r, 16) <= kpre.SMEM_DEFAULT
+    for r in (60, 109):
+        assert kpre.tile_plan(r) == 8
+        assert kpre.SMEM_DEFAULT < kpre.smem_bytes(r, 8) <= kpre.SMEM_OPTIN
+    with pytest.raises(ValueError, match=str(kpre.SMEM_OPTIN)):
+        kpre.tile_plan(110)
+    with pytest.raises(ValueError):
+        kpre.tile_plan(-1)
