@@ -63,12 +63,6 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChannels = 6;
 
-// origin + (q + off) * step, rounded after each operation.
-__device__ __forceinline__ float grid_to_world(float q, float off, float step,
-                                               float origin) {
-  return __fadd_rn(__fmul_rn(__fadd_rn(q, off), step), origin);
-}
-
 // max(1 - |a - p| inv_r, 0).
 __device__ __forceinline__ float tent(float a, float p, float inv_r) {
   return fmaxf(__fsub_rn(1.0f, __fmul_rn(fabsf(__fsub_rn(a, p)), inv_r)), 0.0f);

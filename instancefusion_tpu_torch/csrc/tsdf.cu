@@ -7,18 +7,37 @@
 // depth and color images for each voxel through one-hot matmuls over a
 // tile-aligned image window, addressed the payload by groups of 8 rows and
 // skipped blocks straddling the camera plane because their window was
-// meaningless.  Here one block of B^3 threads handles one listed slot: each
-// thread projects its voxel, reads the depth (and color) pixel directly and
-// updates sdf, weight and packed color in place.  Listed slots are unique
-// where valid (prefix-sum compaction), so no two blocks write one row;
-// invalid list entries are skipped.  Straddling blocks are kept: with a
-// direct read every voxel has exact per-voxel semantics, as in the plain
-// version (ops/blocks.py integrate_slots of the reference, jnp branch).
-// Rounding is half to even (rintf), like jnp.round / torch.round.
+// meaningless.  Here each voxel reads its depth (and color) pixel directly
+// and its payload in place, so straddling blocks keep exact per-voxel
+// semantics, as in the plain version (ops/blocks.py integrate_slots of the
+// reference, jnp branch).  The design:
 //
-// K4's bound: bytes.  Each listed block reads and writes its sdf and weight rows
-// (2 KB each) and, on color frames, its packed color row (6 KB); the image
-// reads hit L2.  Coalescing is free: thread i touches float i of each row.
+// - A persistent grid: the blocks the card holds at once (resident_grid,
+//   asked once a device by the wrapper), each walking the list entries
+//   congruent to its index (common.cuh walk_valid_rows).  An invalid entry
+//   costs a byte read, not a scheduled block; valid rows are unique
+//   (prefix-sum compaction), so no two threads write one voxel.
+// - The block forms T_cw from T_wc once (se3_inverse_entry), in shared
+//   memory: the wrapper runs no op before the launch.
+// - 128 threads a block; each row is walked 16 bytes a thread: a thread
+//   takes 4 voxels of one z-run (block_size a multiple of 4), sharing
+//   their x and y terms, and moves sdf, weight and each packed color
+//   segment as one float4.  A quad is written back only where a value
+//   changed bit for bit.
+// - Arithmetic: one rounding per operation in the plain version's order
+//   (common.cuh: the voxel center by grid_to_world, the transform by
+//   cam_row, the projection by project_coord with the zsafe guard, rintf
+//   half to even, __fdiv_rn for psi and the blends), so the kernel equals
+//   ops/kernels/tsdf.integrate_ref bit for bit.
+//
+// Depth-only frames still read every voxel's sdf and weight: where a
+// voxel does not observe, the plain version (and the reference) rewrites
+// sdf as (s w) / w, which is not always s (s = 0.45f, w = 3 gives the
+// next float below).  The quad-level write skip keeps the unchanged ones.
+//
+// K4's bound: bytes.  Each valid row's sdf and weight (2 KB each) and, on
+// color frames, its packed color row (6 KB) are read, and the quads that
+// change are written; the image reads hit L2.
 
 // K8 (tsdf_update_kernel, below) replaces
 // instancefusion_tpu/ops/pallas/tsdf.py:fused_tsdf_update (_update_kernel):
@@ -43,61 +62,97 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
-__global__ void integrate_kernel(
-    const int32_t* __restrict__ slots, const uint8_t* __restrict__ valid,
+constexpr int kIntegrateThreads = 128;
+// 8 blocks an SM caps the kernel at 64 registers (the compiler takes 92
+// unasked, 5 blocks an SM), so the grid (1056 blocks on an H100) holds the
+// main path's ~850 valid rows at once, a block each, and a color frame's
+// rows do not queue two to a block.
+constexpr int kIntegrateMinBlocks = 8;
+
+__global__ void __launch_bounds__(kIntegrateThreads, kIntegrateMinBlocks)
+    integrate_kernel(
+    const int32_t* __restrict__ slots, const uint8_t* __restrict__ valid, int k,
     const int32_t* __restrict__ block_coords, float* __restrict__ sdf,
     float* __restrict__ weight, float* __restrict__ color,
     const float* __restrict__ depth, const float* __restrict__ frame_color,
-    const float* __restrict__ T_cw, int width, int height, int b, float fx,
-    float fy, float cx, float cy, float voxel, float trunc, float ox,
-    float oy, float oz, float max_weight, float color_gain) {
-  const int k = blockIdx.x;
-  if (!valid[k]) return;
-  const int b3 = b * b * b;
-  const int idx = threadIdx.x;
-  const long long slot = slots[k];
-  const int bx = block_coords[3 * slot], by = block_coords[3 * slot + 1],
-            bz = block_coords[3 * slot + 2];
-  const int lx = idx / (b * b), ly = (idx / b) % b, lz = idx % b;
-  const float px = ox + ((float)(bx * b + lx) + 0.5f) * voxel;
-  const float py = oy + ((float)(by * b + ly) + 0.5f) * voxel;
-  const float pz = oz + ((float)(bz * b + lz) + 0.5f) * voxel;
-  const float xc = T_cw[0] * px + T_cw[1] * py + T_cw[2] * pz + T_cw[3];
-  const float yc = T_cw[4] * px + T_cw[5] * py + T_cw[6] * pz + T_cw[7];
-  const float z = T_cw[8] * px + T_cw[9] * py + T_cw[10] * pz + T_cw[11];
-  const float zs = fabsf(z) > 1e-12f ? z : 1e-12f;
-  const float uf = rintf(fx * xc / zs + cx);
-  const float vf = rintf(fy * yc / zs + cy);
-  const bool in_img = uf >= 0.0f && uf < (float)width && vf >= 0.0f &&
-                      vf < (float)height;
-  float w_obs = 0.0f, psi = 0.0f;
-  int pix = 0;
-  if (in_img) {
-    pix = (int)vf * width + (int)uf;
-    const float d = depth[pix];
-    const float sdf_obs = d - z;
-    if (z > 0.0f && d > 0.0f && sdf_obs > -trunc) {
-      w_obs = 1.0f;
-      psi = fminf(fmaxf(sdf_obs / trunc, -1.0f), 1.0f);
-    }
-  }
-  const long long row = slot * b3 + idx;
-  const float s_old = sdf[row];
-  const float w_old = weight[row];
-  const float w_sum = w_old + w_obs;
-  if (w_sum > 0.0f) sdf[row] = (s_old * w_old + psi * w_obs) / fmaxf(w_sum, 1e-6f);
-  weight[row] = fminf(w_sum, max_weight);
-  if (frame_color != nullptr) {
-    const float wc = color_gain * w_obs;
-    const float den = fmaxf(w_old + wc, 1e-6f);
-    for (int c = 0; c < 3; ++c) {
-      const long long crow = slot * 3 * b3 + c * b3 + idx;
-      const float c_obs = frame_color[3 * pix + c];
-      color[crow] = (color[crow] * w_old + c_obs * wc) / den;
-    }
-  }
+    const float* __restrict__ T_wc, Pinhole cam, int b, float voxel,
+    float trunc, float ox, float oy, float oz, float max_weight,
+    float color_gain) {
+  // T_cw; the walk's first barrier publishes it before any row is read.
+  __shared__ float T[12];
+  if (threadIdx.x < 12) T[threadIdx.x] = se3_inverse_entry(T_wc, threadIdx.x);
+  const int b3 = b * b * b, bb = b * b;
+  walk_valid_rows<kIntegrateThreads>(
+      slots, valid, k, block_coords, [&](int slot, int bx, int by, int bz) {
+        for (int q = threadIdx.x; q < b3 / 4; q += kIntegrateThreads) {
+          const int v0 = 4 * q;
+          const long long row = (long long)slot * b3 + v0;
+          const long long crow = (long long)slot * 3 * b3 + v0;
+          // The payload first: its loads do not wait for the projection.
+          float s_old[4], w_old[4], c_old[3][4];
+          load4(sdf + row, s_old);
+          load4(weight + row, w_old);
+          if (frame_color != nullptr) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) load4(color + crow + c * b3, c_old[c]);
+          }
+          const int lx = v0 / bb, ly = (v0 / b) % b, lz = v0 % b;
+          const float px = grid_to_world((float)(bx * b + lx), 0.5f, voxel, ox);
+          const float py = grid_to_world((float)(by * b + ly), 0.5f, voxel, oy);
+          const float xy0 = cam_row_xy(px, py, T), xy1 = cam_row_xy(px, py, T + 4),
+                      xy2 = cam_row_xy(px, py, T + 8);
+          float psi[4], w_obs[4];
+          int pix[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float pz =
+                grid_to_world((float)(bz * b + lz + j), 0.5f, voxel, oz);
+            const float z = cam_row_z(xy2, pz, T + 8);
+            const PixelHit h = nearest_pixel(cam_row_z(xy0, pz, T),
+                                             cam_row_z(xy1, pz, T + 4), z, cam);
+            const float d = depth[h.pix];
+            const float sdf_obs = __fsub_rn(d, z);
+            psi[j] = fminf(fmaxf(__fdiv_rn(sdf_obs, trunc), -1.0f), 1.0f);
+            w_obs[j] = h.seen && d > 0.0f && sdf_obs > -trunc ? 1.0f : 0.0f;
+            pix[j] = h.pix;
+          }
+          float s_new[4], w_new[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float w_sum = __fadd_rn(w_old[j], w_obs[j]);
+            s_new[j] = w_sum > 0.0f
+                           ? __fdiv_rn(__fadd_rn(__fmul_rn(s_old[j], w_old[j]),
+                                                 __fmul_rn(psi[j], w_obs[j])),
+                                       fmaxf(w_sum, 1e-6f))
+                           : s_old[j];
+            w_new[j] = fminf(w_sum, max_weight);
+          }
+          store4_if_changed(sdf + row, s_old, s_new);
+          store4_if_changed(weight + row, w_old, w_new);
+          if (frame_color == nullptr) continue;
+          float wc[4], den[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            wc[j] = __fmul_rn(color_gain, w_obs[j]);
+            den[j] = fmaxf(__fadd_rn(w_old[j], wc[j]), 1e-6f);
+          }
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            float c_new[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              c_new[j] = __fdiv_rn(
+                  __fadd_rn(__fmul_rn(c_old[c][j], w_old[j]),
+                            __fmul_rn(frame_color[3 * pix[j] + c], wc[j])),
+                  den[j]);
+            store4_if_changed(color + crow + c * b3, c_old[c], c_new);
+          }
+        }
+      });
 }
 
 __global__ void tsdf_update_kernel(
@@ -148,20 +203,28 @@ extern "C" int ifl_tsdf_update(const int32_t* slots, const uint8_t* valid,
   return (int)cudaGetLastError();
 }
 
+// K4's grid on the current device (the blocks it holds at once).
+extern "C" int ifl_integrate_grid(int* nblocks) {
+  return resident_grid(integrate_kernel, kIntegrateThreads, nblocks);
+}
+
+// grid blocks walk the k list entries; block_size must be a multiple of 4
+// and the payload rows 16-byte aligned.  A null frame_color fuses depth
+// only and leaves color as it is.
 extern "C" int ifl_integrate(const int32_t* slots, const uint8_t* valid, int k,
-                             const int32_t* block_coords, float* sdf,
+                             int grid, const int32_t* block_coords, float* sdf,
                              float* weight, float* color, const float* depth,
-                             const float* frame_color, const float* T_cw,
+                             const float* frame_color, const float* T_wc,
                              int width, int height, int block_size, float fx,
                              float fy, float cx, float cy, float voxel,
                              float trunc, float ox, float oy, float oz,
                              float max_weight, float color_gain,
                              void* stream) {
   if (k == 0) return 0;
-  const int b3 = block_size * block_size * block_size;
-  integrate_kernel<<<k, b3, 0, (cudaStream_t)stream>>>(
-      slots, valid, block_coords, sdf, weight, color, depth, frame_color,
-      T_cw, width, height, block_size, fx, fy, cx, cy, voxel, trunc, ox, oy,
-      oz, max_weight, color_gain);
+  const Pinhole cam{fx, fy, cx, cy, width, height};
+  integrate_kernel<<<grid, kIntegrateThreads, 0, (cudaStream_t)stream>>>(
+      slots, valid, k, block_coords, sdf, weight, color, depth, frame_color,
+      T_wc, cam, block_size, voxel, trunc, ox, oy, oz, max_weight,
+      color_gain);
   return (int)cudaGetLastError();
 }

@@ -150,6 +150,29 @@ def cam_row(p: torch.Tensor, T: torch.Tensor, i: int) -> torch.Tensor:
     return ((p[..., 0] * T[i, 0] + p[..., 1] * T[i, 1]) + p[..., 2] * T[i, 2]) + T[i, 3]
 
 
+def se3_inverse_rows(T: torch.Tensor) -> torch.Tensor:
+    """``se3_inverse`` rounded in a fixed order: [R^T, t'] with coordinate
+    j of t' = -(((R[0,j] t0) + R[1,j] t1) + R[2,j] t2), one rounding per
+    operation; the bottom row is T's own ([0, 0, 0, 1] for a rigid T).
+
+    ``csrc/common.cuh``'s ``se3_inverse_entry`` forms the same entries
+    without fused multiply-adds, so a kernel that inverts the pose itself
+    and a plain version that calls this one place every voxel on the same
+    pixel (``se3_inverse``'s matrix product sums in no fixed order).
+    """
+    R, t = T[..., :3, :3], T[..., :3, 3:]
+    t_inv = -((R[..., 0, :] * t[..., 0, :] + R[..., 1, :] * t[..., 1, :])
+              + R[..., 2, :] * t[..., 2, :])
+    top = torch.cat([R.transpose(-1, -2), t_inv[..., None]], dim=-1)
+    return torch.cat([top, T[..., 3:, :]], dim=-2)
+
+
+def cam_rows(p: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """(4,4) T applied to points (..., 3): ``cam_row`` for all three
+    coordinates at once, one broadcast operation per step."""
+    return ((p[..., 0:1] * T[:3, 0] + p[..., 1:2] * T[:3, 1]) + p[..., 2:3] * T[:3, 2]) + T[:3, 3]
+
+
 def rotate_vectors(T: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Apply only the rotation of (4,4) T to vectors (..., 3)."""
     return n @ T[:3, :3].T

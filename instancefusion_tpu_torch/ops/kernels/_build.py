@@ -121,6 +121,35 @@ def check_tensors(tensors: dict, device) -> None:
             raise ValueError(f"{name} must be a contiguous tensor on {device}")
 
 
+def check_quads(block_size: int, *rows) -> None:
+    """Raise unless a block's voxels split into z-runs of 4 and each of
+    ``rows`` starts 16-byte aligned: K4 and K7 move 4 voxels a thread as
+    one 16-byte access."""
+    if block_size % 4:
+        raise ValueError(f"block_size {block_size} is not a multiple of 4")
+    for t in rows:
+        if t.data_ptr() % 16:
+            raise ValueError("payload rows must start 16-byte aligned")
+
+
+# (exported grid function, device index) -> blocks.
+_grids: dict = {}
+
+
+def resident_grid(lib: ctypes.CDLL, fn: str, device) -> int:
+    """A persistent kernel's grid on ``device``: ``lib.<fn>`` reports the
+    blocks the card holds at once (SMs x resident blocks).  Asked once a
+    device, before any launch, so never inside a CUDA-graph capture."""
+    key = (fn, torch.device(device).index)
+    grid = _grids.get(key)
+    if grid is None:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            check(getattr(lib, fn)(ctypes.byref(out)), fn)
+        grid = _grids[key] = out.value
+    return grid
+
+
 def stream_handle():
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 

@@ -15,13 +15,13 @@ import ctypes
 import torch
 
 from instancefusion_tpu_torch.geometry.camera import Intrinsics
-from instancefusion_tpu_torch.geometry.se3 import se3_inverse
 from instancefusion_tpu_torch.ops.kernels import _build
 from instancefusion_tpu_torch.ops.kernels.tsdf import project_voxels
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ifl_label_vote": [_P, _P, _I] + [_P] * 6 + [_I] * 3 + [_F] * 9 + [_P],
+    "ifl_label_vote_grid": [_P],
+    "ifl_label_vote": [_P, _P, _I, _I] + [_P] * 6 + [_I] * 3 + [_F] * 9 + [_P],
 }
 
 
@@ -65,28 +65,30 @@ def label_vote(block_coords, label, count, slots, valid, depth, gid_image,
 
     block_coords i32[C, 3]; label i32[C, B^3]; count f32[C, B^3]; slots
     i32[K] with valid bool[K] (valid slots unique); depth f32[H, W];
-    gid_image i32[H, W] (-1 = no instance); T_wc f32[4, 4].
+    gid_image i32[H, W] (-1 = no instance); T_wc f32[4, 4].  On the card
+    one launch and no other device op: the kernel inverts the pose itself.
     """
     if label.device.type == "cpu":
         label_vote_ref(block_coords, label, count, slots, valid, depth, gid_image,
                        T_wc, intr, cfg)
         return
     dev = label.device
-    T_cw = se3_inverse(T_wc).contiguous()
     _build.check_tensors(dict(block_coords=block_coords, label=label, count=count,
                               slots=slots, valid=valid, depth=depth,
-                              gid_image=gid_image), dev)
+                              gid_image=gid_image, T_wc=T_wc), dev)
     if (slots.dtype != torch.int32 or block_coords.dtype != torch.int32
             or label.dtype != torch.int32 or gid_image.dtype != torch.int32):
         raise ValueError("slots, block_coords, label and gid_image must be int32")
-    if count.dtype != torch.float32 or depth.dtype != torch.float32:
-        raise ValueError("count and depth must be float32")
-    if cfg.block_size**3 > 1024:
-        raise ValueError("the label vote kernel takes blocks of at most 1024 voxels")
+    if (count.dtype != torch.float32 or depth.dtype != torch.float32
+            or T_wc.dtype != torch.float32 or valid.dtype != torch.bool):
+        raise ValueError("count, depth and T_wc must be float32 and valid bool")
+    _build.check_quads(cfg.block_size, label, count)
     p = _build.ptr
+    k = slots.shape[0]
+    grid = _build.resident_grid(_lib(), "ifl_label_vote_grid", dev)
     err = _lib().ifl_label_vote(
-        p(slots), p(valid), slots.shape[0], p(block_coords), p(label), p(count),
-        p(depth), p(gid_image), p(T_cw), intr.width, intr.height, cfg.block_size,
+        p(slots), p(valid), k, min(grid, k), p(block_coords), p(label), p(count),
+        p(depth), p(gid_image), p(T_wc), intr.width, intr.height, cfg.block_size,
         intr.fx, intr.fy, intr.cx, intr.cy, cfg.voxel_size, cfg.trunc,
         *cfg.origin, _build.stream_handle(),
     )

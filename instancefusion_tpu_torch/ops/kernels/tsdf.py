@@ -7,7 +7,8 @@ made.  ``tsdf_update`` (K8) is the running-average half alone: it takes
 per-voxel observations computed outside the kernel (the touched-block
 integrate of ``ops/blocks.py``) and updates the listed rows in place.
 CUDA tensors launch the kernels, CPU tensors run ``integrate_ref`` and
-``tsdf_update_ref``.  Each wrapper's ``launches`` counts its launches.
+``tsdf_update_ref``.  Each wrapper's ``launches`` counts its launches,
+``integrate.launches_color`` those that fuse color.
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ import ctypes
 import torch
 
 from instancefusion_tpu_torch.geometry.camera import Intrinsics, nearest_pixel, project
-from instancefusion_tpu_torch.geometry.se3 import se3_inverse, transform_points
+from instancefusion_tpu_torch.geometry.se3 import cam_rows, se3_inverse_rows
 from instancefusion_tpu_torch.ops.kernels import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ifl_integrate": [_P, _P, _I] + [_P] * 7 + [_I] * 3 + [_F] * 11 + [_P],
+    "ifl_integrate_grid": [_P],
+    "ifl_integrate": [_P, _P, _I, _I] + [_P] * 7 + [_I] * 3 + [_F] * 11 + [_P],
     "ifl_tsdf_update": [_P, _P, _I, _I] + [_P] * 6 + [_F, _F, _P],
 }
 
@@ -45,9 +47,14 @@ def voxel_centers(coords: torch.Tensor, cfg) -> torch.Tensor:
 def project_voxels(block_coords, slots, T_wc, intr: Intrinsics, cfg):
     """Per voxel of the listed rows, (K, B^3) each: its camera depth z, the
     flat index of the pixel it projects to (rounded half to even, clamped
-    into the image) and whether that pixel is in the image with z > 0."""
-    p_c = transform_points(se3_inverse(T_wc), voxel_centers(block_coords[slots.long()], cfg))
-    u, v, z = project(intr, p_c)
+    into the image) and whether that pixel is in the image with z > 0.
+
+    One rounding per operation in a fixed order (``se3_inverse_rows``,
+    ``cam_rows``, ``project``), as K4 and K7 compute it: both kernels place
+    every voxel on this pixel.
+    """
+    p_w = voxel_centers(block_coords[slots.long()], cfg)
+    u, v, z = project(intr, cam_rows(p_w, se3_inverse_rows(T_wc)))
     in_img, pix = nearest_pixel(intr, u, v)
     return z, pix, in_img & (z > 0.0)
 
@@ -67,7 +74,9 @@ def integrate_ref(block_coords, sdf, weight, color, slots, valid, depth,
     d = depth.reshape(-1)[pix]
     sdf_obs = d - z
     ok = seen & (d > 0.0) & (sdf_obs > -cfg.trunc)
-    psi = torch.clamp(sdf_obs / cfg.trunc, -1.0, 1.0)
+    # A tensor divisor: CUDA divides by a Python scalar as a product by its
+    # reciprocal, the kernel and the CPU divide.
+    psi = torch.clamp(sdf_obs / sdf_obs.new_full((), cfg.trunc), -1.0, 1.0)
     w_obs = ok.float()
 
     s_old, w_old = sdf[slots], weight[slots]
@@ -95,37 +104,45 @@ def integrate(block_coords, sdf, weight, color, slots, valid, depth,
     block_coords i32[C, 3]; sdf, weight f32[C, B^3]; color f32[C, 3 B^3]
     (packed [r | g | b]); slots i32[K] with valid bool[K] (valid slots
     unique); depth f32[H, W]; frame_color f32[H, W, 3] or None (no color
-    fusion this frame); T_wc f32[4, 4].
+    fusion this frame); T_wc f32[4, 4].  On the card one launch and no
+    other device op: the kernel inverts the pose itself.
     """
     if sdf.device.type == "cpu":
         integrate_ref(block_coords, sdf, weight, color, slots, valid, depth,
                       frame_color, T_wc, intr, cfg, color_gain)
         return
     dev = sdf.device
-    T_cw = se3_inverse(T_wc).contiguous()
     tensors = dict(block_coords=block_coords, sdf=sdf, weight=weight,
-                   slots=slots, valid=valid, depth=depth)
+                   slots=slots, valid=valid, depth=depth, T_wc=T_wc)
     if frame_color is not None:
         tensors.update(color=color, frame_color=frame_color)
     _build.check_tensors(tensors, dev)
-    if slots.dtype != torch.int32 or block_coords.dtype != torch.int32:
-        raise ValueError("slots and block_coords must be int32")
-    if cfg.block_size**3 > 1024:
-        raise ValueError("the integrate kernel takes blocks of at most 1024 voxels")
+    if (slots.dtype != torch.int32 or block_coords.dtype != torch.int32
+            or valid.dtype != torch.bool):
+        raise ValueError("slots and block_coords must be int32 and valid bool")
+    if any(t.dtype != torch.float32 for n, t in tensors.items()
+           if n not in ("block_coords", "slots", "valid")):
+        raise ValueError("integrate takes float32 payload, images and pose")
+    _build.check_quads(cfg.block_size, sdf, weight, *([color] if frame_color is not None else []))
     p = _build.ptr
     fc = p(frame_color) if frame_color is not None else None
     col = p(color) if frame_color is not None else None
+    k = slots.shape[0]
+    grid = _build.resident_grid(_lib(), "ifl_integrate_grid", dev)
     err = _lib().ifl_integrate(
-        p(slots), p(valid), slots.shape[0], p(block_coords), p(sdf), p(weight),
-        col, p(depth), fc, p(T_cw), intr.width, intr.height, cfg.block_size,
-        intr.fx, intr.fy, intr.cx, intr.cy, cfg.voxel_size, cfg.trunc,
-        *cfg.origin, cfg.max_weight, color_gain, _build.stream_handle(),
+        p(slots), p(valid), k, min(grid, k), p(block_coords), p(sdf),
+        p(weight), col, p(depth), fc, p(T_wc), intr.width, intr.height,
+        cfg.block_size, intr.fx, intr.fy, intr.cx, intr.cy, cfg.voxel_size,
+        cfg.trunc, *cfg.origin, cfg.max_weight, color_gain,
+        _build.stream_handle(),
     )
     _build.check(err, "integrate")
     integrate.launches += 1
+    integrate.launches_color += int(frame_color is not None)
 
 
 integrate.launches = 0
+integrate.launches_color = 0
 
 
 def tsdf_update_ref(sdf, weight, color, slots, valid, psi, w_obs, obs,

@@ -153,21 +153,132 @@ def _slot_list(state, frame):
     return vol, slots, valid, d0
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _assert_bit_equal(out_k, out_r, before, rows):
+    """The kernel's planes equal the plain version's bit for bit, and every
+    row outside ``rows`` is as it was before on both."""
+    other = torch.ones(before.shape[0], dtype=torch.bool, device=before.device)
+    other[rows] = False
+    assert torch.equal(_bits(out_k), _bits(out_r))
+    assert torch.equal(_bits(out_r[other]), _bits(before[other]))
+
+
+def _relist(slots, valid, kind):
+    """The valid slots of a prefix list laid out as another list shape:
+    ``prefix`` (as given), ``holes`` (the valid entries scattered over a
+    list twice as long, the holes naming listed rows), ``all_invalid``
+    (every entry invalid, each naming a listed row) or ``sparse_8192`` (40
+    valid entries at random places in 8192)."""
+    if kind == "prefix":
+        return slots, valid
+    rows = slots[valid]
+    g = torch.Generator(device="cpu").manual_seed(len(kind))
+    length = {"holes": 2 * rows.numel() + 7, "all_invalid": rows.numel(),
+              "sparse_8192": 8192}[kind]
+    keep = rows[:40] if kind == "sparse_8192" else rows
+    if kind == "all_invalid":
+        keep = keep[:0]
+    at = torch.randperm(length, generator=g)[:keep.numel()].to(slots.device)
+    out_slots = rows[torch.arange(length, device=slots.device) % rows.numel()].clone()
+    out_valid = torch.zeros(length, dtype=torch.bool, device=slots.device)
+    out_slots[at] = keep
+    out_valid[at] = True
+    return out_slots.contiguous(), out_valid
+
+
+LISTS = ["prefix", "holes", "all_invalid", "sparse_8192"]
+
+
 @pytest.mark.parametrize("with_color", [True, False])
-def test_integrate_kernel_matches_plain(run, with_color):
-    """sdf 5e-4, weight 1e-5, color 5e-3 on >= 99.9% of voxels; the rest
-    project onto a .5 boundary that the two round apart."""
+@pytest.mark.parametrize("kind", LISTS)
+def test_integrate_kernel_matches_plain(run, with_color, kind):
+    """sdf, weight and color bit-equal to the plain version on every voxel,
+    with color and depth only, on a prefix list, a list with holes, an
+    all-invalid list and an 8192-entry list with 40 valid entries; rows
+    outside the valid set are untouched."""
     state, frame, _ = run
     vol, slots, valid, d0 = _slot_list(state, frame)
-    maps_k = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
-    maps_r = [x.clone() for x in maps_k]
+    slots, valid = _relist(slots, valid, kind)
+    before = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
+    maps_k = [x.clone() for x in before]
+    maps_r = [x.clone() for x in before]
     args = (slots, valid, d0, frame.color if with_color else None, frame.T_wc,
             CFG.intrinsics, CFG.tsdf, 4.0)
     ktsdf.integrate(vol.block_coords, *maps_k, *args)
     ktsdf.integrate_ref(vol.block_coords, *maps_r, *args)
-    assert not torch.equal(maps_k[1], vol.weight)  # the frame fused something
-    for a, b, tol in zip(maps_k, maps_r, (5e-4, 1e-5, 5e-3)):
-        assert float(((a - b).abs() <= tol).float().mean()) >= 0.999
+    rows = slots[valid].long()
+    assert torch.unique(rows).numel() == rows.numel()
+    if kind != "all_invalid":
+        assert not torch.equal(maps_k[1], before[1])  # the frame fused something
+    for out_k, out_r, b in zip(maps_k, maps_r, before):
+        _assert_bit_equal(out_k, out_r, b, rows)
+
+
+def _device_ops(fn, reps=10):
+    """Each device op's count over `reps` calls of `fn`, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.count > 0}
+
+
+def _assert_one_launch(launched, kernel, reps=10):
+    assert len(launched) == 1, launched
+    (name, count), = launched.items()
+    # The profiler may miss an event at its window's edge, never add one.
+    assert kernel in name and reps - 1 <= count <= reps, launched
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_integrate_kernel_is_one_launch(run, with_color):
+    """A K4 call is one device launch of integrate_kernel and no other
+    device op: the pose is inverted in the kernel."""
+    state, frame, _ = run
+    vol, slots, valid, d0 = _slot_list(state, frame)
+    maps = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
+    args = (slots, valid, d0, frame.color if with_color else None, frame.T_wc,
+            CFG.intrinsics, CFG.tsdf, 4.0)
+    _assert_one_launch(_device_ops(lambda: ktsdf.integrate(vol.block_coords, *maps, *args)),
+                       "integrate_kernel")
+
+
+def _replay_equals_eager(call, planes):
+    """`call(planes)` captured in a CUDA graph and replayed on copies of
+    `planes` leaves them bit-equal to an eager call on other copies."""
+    eager = [x.clone() for x in planes]
+    call(eager)
+    captured = [x.clone() for x in planes]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        call(captured)
+    for x, x0 in zip(captured, planes):
+        x.copy_(x0)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(captured, eager):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_integrate_kernel_replays_in_cuda_graph(run, with_color):
+    """One K4 call captured in a CUDA graph and replayed fuses as the eager
+    call does."""
+    state, frame, _ = run
+    vol, slots, valid, d0 = _slot_list(state, frame)
+    args = (slots, valid, d0, frame.color if with_color else None, frame.T_wc,
+            CFG.intrinsics, CFG.tsdf, 4.0)
+    _replay_equals_eager(lambda m: ktsdf.integrate(vol.block_coords, *m, *args),
+                         [vol.sdf, vol.weight, vol.color])
 
 
 def test_splat_kernel_matches_plain(run):
@@ -236,26 +347,58 @@ def test_preprocess_kernel_matches_plain(run, radius):
     assert (out[2] - ref[2])[v].abs().max().item() < 1e-3
 
 
-def test_label_vote_kernel_matches_plain(run):
-    """Labels and counts equal on >= 99.9% of the voxels of valid slots; the
-    rest project onto a .5 pixel boundary that the two round apart."""
+def _vote_case(run):
+    """The touched-block list (8192 entries) of the next frame, its ground-
+    truth id image and K7's other arguments."""
     state, frame, _ = run
     seg = synthetic.gt_segmentation(frame.instance, CFG.instances.max_instances)
     touched = blocks.touched_blocks_mask(frame.depth, frame.T_wc, CFG.intrinsics, CFG.tsdf)
     nb3 = blocks.num_blocks_per_axis(CFG.tsdf) ** 3
     slots, valid = blocks.compact_touched_slots(state.volume, touched, CFG.tsdf,
                                                 min(8192, nb3))
-    gid = seg.mask_id
-    planes_k = [state.votes.label.clone(), state.votes.count.clone()]
-    planes_r = [x.clone() for x in planes_k]
-    args = (slots, valid, frame.depth, gid, frame.T_wc, CFG.intrinsics, CFG.tsdf)
-    klab.label_vote(state.volume.block_coords, *planes_k, *args)
-    klab.label_vote_ref(state.volume.block_coords, *planes_r, *args)
+    rest = (frame.depth, seg.mask_id, frame.T_wc, CFG.intrinsics, CFG.tsdf)
+    return state, slots, valid, rest
+
+
+@pytest.mark.parametrize("kind", LISTS)
+def test_label_vote_kernel_matches_plain(run, kind):
+    """Labels and counts bit-equal to the plain version on every voxel, on
+    the touched list and on the other list shapes of ``_relist``; rows
+    outside the valid set are untouched."""
+    state, slots, valid, rest = _vote_case(run)
+    slots, valid = _relist(slots, valid, kind)
+    before = [state.votes.label.clone(), state.votes.count.clone()]
+    planes_k = [x.clone() for x in before]
+    planes_r = [x.clone() for x in before]
+    klab.label_vote(state.volume.block_coords, *planes_k, slots, valid, *rest)
+    klab.label_vote_ref(state.volume.block_coords, *planes_r, slots, valid, *rest)
     rows = slots[valid].long()
-    assert rows.numel() > 20
-    assert not torch.equal(planes_k[1], state.votes.count)  # the frame voted
-    for a, b in zip(planes_k, planes_r):
-        assert float((a[rows] == b[rows]).float().mean()) >= 0.999
+    assert torch.unique(rows).numel() == rows.numel()
+    if kind != "all_invalid":
+        assert rows.numel() >= 40
+        assert not torch.equal(planes_k[1], before[1])  # the frame voted
+    for out_k, out_r, b in zip(planes_k, planes_r, before):
+        _assert_bit_equal(out_k, out_r, b, rows)
+
+
+def test_label_vote_kernel_is_one_launch(run):
+    """A K7 call is one device launch of label_vote_kernel and no other
+    device op."""
+    state, slots, valid, rest = _vote_case(run)
+    planes = [state.votes.label.clone(), state.votes.count.clone()]
+    _assert_one_launch(
+        _device_ops(lambda: klab.label_vote(state.volume.block_coords, *planes, slots,
+                                            valid, *rest)),
+        "label_vote_kernel")
+
+
+def test_label_vote_kernel_replays_in_cuda_graph(run):
+    """One K7 call captured in a CUDA graph and replayed votes as the eager
+    call does."""
+    state, slots, valid, rest = _vote_case(run)
+    _replay_equals_eager(
+        lambda p: klab.label_vote(state.volume.block_coords, *p, slots, valid, *rest),
+        [state.votes.label, state.votes.count])
 
 
 @pytest.mark.parametrize("with_seg", [False, True])
