@@ -60,7 +60,31 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
 10. the packaged segmentation head at 640x480 on the card, held against the
    same head on the CPU: outputs, the grouping of the same outputs, and the
    whole segmentation on frames whose grouping does not hinge on tied
-   heatmap peaks; then one ``step_seg`` on a head segmentation.
+   heatmap peaks; then one ``step_seg`` on a head segmentation;
+11. the accuracy bar (``check_accuracy_port.py``'s bare engine at the bench
+   geometry): the clean 512^3 orbit and the noisy fr1-mean rig (sweep 0.8,
+   shake 0.012/0.008, Kinect noise from a ``torch.Generator`` seeded 0),
+   40 frames each, held to ``_check_ate512.py``'s assert (largest
+   translation error below 20 mm clean, 30 mm noisy), the means printed
+   beside the JAX package's on a TPU v5e (6.3 and 9.3 mm);
+12. ``pipeline.run`` on the sustained-drift rig (120 frames, sweep 1.6,
+   shake 0.02, noise seed 0, keyframes every 8, the sentinel on, the
+   posegraph defaults), after the bare engine on the same frames: every
+   frame a pose, at least one verified loop, no relocalization, and launch
+   counts (K1 on every frame and keyframe, K2 and K3 12 a frame and 8 a
+   loop verification); the forced keyframes and both mean errors are
+   printed beside the JAX package's own run on the CPU
+   (``python -m tests.torch_helpers``); then the forced path alone: the same
+   configuration at alarm threshold 0 with keyframes every 100th frame
+   over the main path's 33 frames must force keyframes and never
+   relocalize (tests/test_pipeline.py:298's run);
+13. ``pipeline.run`` over 12 frames of the instance path with
+   ground-truth masks every 2nd frame: each segmentation fused on the next
+   frame (the last after the loop), K7 once per fused segmentation, a
+   populated table; then K2 and K3 at the loop-verification shape (the
+   first verified loop's keyframe maps, 160x120, and the current frame
+   decimated by 4), K2 bit-identical to its plain version and K3 (one step
+   a call) within its pose tolerance, timed like the others.
 
 Any failed check exits non-zero.  The second-to-last line is the card's
 name and power limit, the line before it a JSON record per kernel, and the
@@ -119,6 +143,9 @@ DENSE_PER_FRAME = {"K1": 1, "K2": 19, "K3": 19}
 # The drift injected before the local loop, on the left of the tracked pose.
 DRIFT_XI = (0.02, -0.015, 0.01, 0.008, -0.006, 0.01)
 HEAD_FRAMES = 3
+# The accuracy bar's runs (_check_ate512.py's N), the drift rig's
+# (_check_drift_pipeline.py's N) and the instance pipeline's.
+ACCURACY_FRAMES, DRIFT_FRAMES, INSTANCE_PIPELINE_FRAMES = 40, 120, 12
 # A frame's head segmentation is held end to end against the CPU's where it
 # survives HEAD_TRIALS perturbations of the outputs by up to HEAD_EPS, above
 # the card's largest difference from the CPU (1.4e-5, on the logits).
@@ -144,6 +171,11 @@ REPLACES = {
     "K5color": "instancefusion_tpu/ops/pallas/raycast.py:319 splat_depth_groups "
                "(and :581 splat_depth), with_color",
     "K8": "instancefusion_tpu/ops/pallas/tsdf.py:61 fused_tsdf_update",
+    "K2loop": "instancefusion_tpu/ops/pallas/icp.py:218 gather_target_maps (with the jnp "
+              "association, instancefusion_tpu/ops/icp.py:48 associate), as "
+              "instancefusion_tpu/engine/posegraph.py:182-212 verify_loop runs it",
+    "K3loop": "instancefusion_tpu/ops/pallas/icp.py:565 gn_iterations, as "
+              "instancefusion_tpu/engine/posegraph.py:182-212 verify_loop runs it",
 }
 SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
            "K2": "instancefusion_tpu_torch/csrc/icp.cu",
@@ -156,7 +188,9 @@ SOURCES = {"K1": "instancefusion_tpu_torch/csrc/preprocess.cu",
            "K3rgb": "instancefusion_tpu_torch/csrc/icp.cu",
            "K6": "instancefusion_tpu_torch/csrc/icp.cu",
            "K5color": "instancefusion_tpu_torch/csrc/raycast.cu",
-           "K8": "instancefusion_tpu_torch/csrc/tsdf.cu"}
+           "K8": "instancefusion_tpu_torch/csrc/tsdf.cu",
+           "K2loop": "instancefusion_tpu_torch/csrc/icp.cu",
+           "K3loop": "instancefusion_tpu_torch/csrc/icp.cu"}
 # The __global__ functions of each kernel, whose device time the profiler
 # sums for the kernel's device_ms.
 DEVICE_KERNELS = {"K1": ("preprocess_kernel",), "K2": ("associate_kernel",),
@@ -165,13 +199,15 @@ DEVICE_KERNELS = {"K1": ("preprocess_kernel",), "K2": ("associate_kernel",),
                   "K4": ("integrate_kernel",), "K4color": ("integrate_kernel",),
                   "K5": ("splat_kernel",),
                   "K5color": ("splat_kernel",), "K6": ("ne_reduce_kernel", "ne_finish_kernel"),
-                  "K7": ("label_vote_kernel",), "K8": ("tsdf_update_kernel",)}
+                  "K7": ("label_vote_kernel",), "K8": ("tsdf_update_kernel",),
+                  "K2loop": ("associate_kernel",), "K3loop": ("gn_kernel",)}
 NAMES = {"K1": "fused_preprocess", "K2": "associate_gather",
          "K3": "gn_iterations", "K4": "integrate", "K4color": "integrate[color]",
          "K5": "splat_planes",
          "K7": "label_vote", "K2rgb": "associate_gather[rgb]",
          "K3rgb": "gn_iterations[rgb]", "K6": "normal_equations",
-         "K5color": "splat_planes[color]", "K8": "tsdf_update"}
+         "K5color": "splat_planes[color]", "K8": "tsdf_update",
+         "K2loop": "associate_gather[loop 160x120]", "K3loop": "gn_iterations[loop 160x120]"}
 
 
 def fail(msg: str) -> None:
@@ -1212,6 +1248,248 @@ def label_vote_record(cfg, state, frame, launches):
     )
 
 
+def accuracy_phase(card):
+    """The North star's accuracy bar: ``check_accuracy_port``'s bare engine
+    on the clean 512^3 orbit and on the noisy fr1-mean rig (40 frames each),
+    held to ``_check_ate512.py``'s own assert (largest translation error
+    below 20 mm clean, 30 mm noisy), the means printed beside the JAX
+    package's on a TPU v5e (6.3 and 9.3 mm)."""
+    import check_accuracy_port as cap
+    from instancefusion_tpu_torch.ops import kernels
+
+    for noisy, bar, tpu_mm in ((False, 0.02, 6.3), (True, 0.03, 9.3)):
+        cfg = cap.bare_config(noisy)
+        poses, frames = cap.rig_frames(cfg, ACCURACY_FRAMES, noisy)
+        kernels.reset_launches()
+        r = cap.run_bare(cfg, frames, poses)
+        launches = launch_counts()
+        errs = r["errs"]
+        name = "noisy fr1-mean rig (sweep 0.8, shake 0.012/0.008, Kinect noise seed 0)" \
+            if noisy else "clean 512^3 orbit"
+        print(f"accuracy, {name}: {ACCURACY_FRAMES} frames, translation error mean "
+              f"{errs.mean() * 1e3!r} mm, max {errs.max() * 1e3!r} mm (bar: max < "
+              f"{bar * 1e3:.0f} mm); the JAX package's mean on a TPU v5e: {tpu_mm} mm "
+              f"(README.md); {int(r['track_ok'].sum())}/{len(errs)} frames tracked, "
+              f"{r['fps']!r} frames/s, launches {launches} [{card}]", flush=True)
+        check(errs.max() < bar, f"accuracy {name}: max error {errs.max()} m >= {bar} m")
+        check(launches["K2"] == 9 * ACCURACY_FRAMES and launches["K5"] == ACCURACY_FRAMES,
+              f"accuracy {name}: launches {launches}")
+
+
+class LoopRecorder:
+    """Wraps ``posegraph.verify_loop``: keeps the inputs of the first
+    verified loop (the candidate keyframe's pose and stored maps, the
+    current frame's level-0 maps, the seed pose, cloned) and the K2 and K3
+    launches made inside verification calls."""
+
+    def __init__(self):
+        from instancefusion_tpu_torch.engine import posegraph
+
+        self.pg, self.orig = posegraph, posegraph.verify_loop
+        self.first, self.calls, self.k2, self.k3 = None, 0, 0, 0
+
+    def __enter__(self):
+        self.pg.verify_loop = self
+        return self
+
+    def __exit__(self, *exc):
+        self.pg.verify_loop = self.orig
+
+    def __call__(self, bs, cand, vertex_c, normal_c, intr, cfg, T_cur_wc=None):
+        from instancefusion_tpu_torch.ops import kernels
+
+        fns = kernels.wrappers()
+        k2, k3 = fns["K2"].launches, fns["K3"].launches
+        out = self.orig(bs, cand, vertex_c, normal_c, intr, cfg, T_cur_wc)
+        self.calls += 1
+        self.k2 += fns["K2"].launches - k2
+        self.k3 += fns["K3"].launches - k3
+        if self.first is None and bool(out[2]):
+            i = int(cand)
+            self.first = dict(
+                cand=i, kf_pose=bs.kf.poses[i].clone(), kv=bs.kf.vertex_c[i].clone(),
+                kn=bs.kf.normal_c[i].clone(), kval=bs.kf.valid[i].clone(),
+                vertex_c=vertex_c.clone(), normal_c=normal_c.clone(),
+                T0=(bs.kf.poses[i] if T_cur_wc is None else T_cur_wc).clone(), cfg=cfg,
+                intr=intr)
+        return out
+
+
+def drift_pipeline_phase(card):
+    """``pipeline.run`` on the sustained-drift rig (``check_accuracy_port``
+    with PIPELINE=1's defaults: 120 frames, sweep 1.6, shake 0.02, noise seed
+    0, keyframes every 8, the sentinel on), after the bare engine on the same
+    frames.  Holds every frame's pose, at least one verified loop and no
+    relocalization; prints the keyframes beyond the cadence (the sentinel's
+    forced path) and both mean errors.  Returns the first verified loop's
+    inputs and the K2/K3 launches of verification."""
+    import check_accuracy_port as cap
+    from instancefusion_tpu_torch.ops import kernels
+
+    cfg = cap.pipeline_config()
+    poses, frames = cap.rig_frames(cfg, DRIFT_FRAMES, True, 1.6, 0.02, seed=0)
+    kernels.reset_launches()
+    bare = cap.run_bare(cfg, frames, poses)
+    bare_launches = launch_counts()
+    with LoopRecorder() as rec:
+        kernels.reset_launches()
+        res, rows, errs, fps = cap.run_pipeline(cfg, frames, poses)
+        launches = launch_counts()
+    s = cap.pipeline_summary(res, rows, errs, poses)
+    cadence = len(range(0, DRIFT_FRAMES, cfg.posegraph.keyframe_every))
+    forced = s["keyframes"] - cadence
+    phases = {k: round(v, 3) for k, v in s["phase_ms"].items()}
+    print(f"drift pipeline: {s['frames']} frames, {s['keyframes']} keyframes ({cadence} by "
+          f"cadence, {forced} forced by the sentinel), {s['loops']} verified loops of "
+          f"{rec.calls} verifications, {s['relocalizations']} relocalizations, alarms on "
+          f"{s['alarm_frames']} frames (first {s['first_alarm']}, EWMA max "
+          f"{s['ewma_max_mm']!r} mm); translation error mean {s['mean_mm']!r} mm, max "
+          f"{s['max_mm']!r} mm, final {s['final_mm']!r} mm, ATE {s['ate_mm']!r} mm; the "
+          f"bare engine on the same frames: mean {bare['errs'].mean() * 1e3!r} mm, max "
+          f"{bare['errs'].max() * 1e3!r} mm ({bare['fps']!r} frames/s, launches "
+          f"{bare_launches}); pipeline {fps!r} frames/s, phase sums (ms) {phases}, "
+          f"launches {launches}; verification made {rec.k2} K2 and {rec.k3} K3 launches "
+          f"[{card}]", flush=True)
+    print(f"drift pipeline: the JAX package on a TPU v5e reported 17.2 mm mean and 6 "
+          f"loops on this rig (_check_drift_pipeline.py); on the CPU the same package "
+          f"gives the bare engine 79.72 mm and the pipeline 80.30 mm mean, 15 keyframes "
+          f"(none forced), 3 loops, 0 relocalizations (python -m tests.torch_helpers, noise "
+          f"seed 0), which these runs are held beside, not to", flush=True)
+    check(len(res.poses) == DRIFT_FRAMES and np.isfinite(res.poses).all(),
+          "drift pipeline: a frame has no finite pose")
+    check(s["loops"] >= 1 and rec.first is not None, "drift pipeline: no verified loop")
+    check(s["relocalizations"] == 0, "drift pipeline: relocalized while tracking was healthy")
+    check(bool(bare["track_ok"].all()), "drift pipeline: the bare engine lost track")
+    # Through the kernels: K1 on every frame and keyframe; K2 and K3 9 rounds
+    # a frame (ICP), 3 (the sentinel) and 8 a verification.
+    n = DRIFT_FRAMES
+    expect = {"K1": n + s["keyframes"], "K2": 12 * n + 8 * rec.calls,
+              "K3": 12 * n + 8 * rec.calls, "K4": n, "K5": n}
+    for k, count in expect.items():
+        check(launches[k] == count, f"drift pipeline: {k} launched {launches[k]} times, "
+                                    f"expected {count}")
+    check(rec.k2 == rec.k3 == 8 * rec.calls, f"drift pipeline: verification launches "
+                                             f"{rec.k2}/{rec.k3} for {rec.calls} calls")
+    return rec
+
+
+def forced_keyframe_phase(frames, poses, card):
+    """The sentinel's forced keyframes on the card, as
+    tests/test_pipeline.py:298 holds them on the CPU: the drift rig's
+    configuration with the alarm threshold at 0 (every frame past the
+    sentinel's warm-up alarms) and keyframes every 100th frame, over the
+    main path's clean orbit: the streak must force keyframes the cadence
+    would not give, and no relocalization."""
+    import check_accuracy_port as cap
+
+    cfg = cap.pipeline_config()
+    cfg = dataclasses.replace(
+        cfg, consistency_thresh=0.0,
+        posegraph=dataclasses.replace(cfg.posegraph, keyframe_every=100))
+    res, rows, errs, _ = cap.run_pipeline(cfg, frames, poses)
+    kfs = [r["frame"] for r in rows if r["keyframe"]]
+    relocs = sum(bool(r["relocalized"]) for r in rows)
+    alarms = sum(bool(r.get("drift_alarm", False)) for r in rows)
+    print(f"forced keyframes: {len(frames)} frames of the orbit at alarm threshold 0, "
+          f"keyframes every 100th: alarms on {alarms} frames, keyframes at {kfs}, "
+          f"{relocs} relocalizations, translation error mean {errs.mean() * 1e3!r} mm "
+          f"[{card}]", flush=True)
+    check(len(kfs) >= 2, f"forced keyframes: only {kfs} (the cadence gives [0])")
+    check(relocs == 0, "forced keyframes: relocalized while tracking was healthy")
+
+
+def loop_kernel_records(rec):
+    """K2 and K3 at the loop-verification shape, on the first verified
+    loop's inputs: the candidate keyframe's stored 160x120 maps as the
+    target and the current frame decimated by 4 as the source, at the
+    verification's seed pose (K2 bit-identical to its plain version, K3
+    with ``inner_n`` 1 within the pose tolerance of its main-path check)."""
+    from instancefusion_tpu_torch.engine import posegraph as pg
+    from instancefusion_tpu_torch.geometry.se3 import rotate_vectors, se3_inverse
+    from instancefusion_tpu_torch.geometry.se3 import transform_points
+    from instancefusion_tpu_torch.ops.common import decimate
+    from instancefusion_tpu_torch.ops.kernels import icp as kicp
+
+    f, cfg = rec.first, rec.first["cfg"]
+    decim = f["vertex_c"].shape[0] // f["kv"].shape[0]
+    intr_d = pg._decimated_intrinsics(f["intr"], decim)
+    tv = transform_points(f["kf_pose"], f["kv"].reshape(-1, 3)).reshape(f["kv"].shape)
+    tn = rotate_vectors(f["kf_pose"], f["kn"].reshape(-1, 3)).reshape(f["kv"].shape)
+    src_v = decimate(f["vertex_c"], decim)
+    src_n = decimate(f["normal_c"], decim)
+    src_ok = (src_v[..., 2] > 0.0) & (torch.linalg.norm(src_n, dim=-1) > 1e-6)
+    src_v = src_v.reshape(-1, 3).contiguous()
+    src_n = src_n.reshape(-1, 3).contiguous()
+    src_ok = src_ok.reshape(-1).contiguous()
+    T0 = f["T0"].contiguous()
+    level = (src_v, src_ok, T0, se3_inverse(f["kf_pose"]), intr_d, tv.contiguous(),
+             tn.contiguous(), f["kval"].contiguous(), 1, None)
+    per_call = {"K2loop": rec.k2 // max(rec.calls, 1), "K3loop": rec.k3 // max(rec.calls, 1)}
+    launches = {"K2loop": rec.k2, "K3loop": rec.k3}
+    recs = [association_record("K2loop", [level], launches)]
+    a = kicp.associate_gather(*level)
+    gate = (src_ok & a.ok).float()
+    n = src_v.shape[0]
+    kw = dict(inner_n=1, dist_thresh=cfg.icp.dist_thresh * 2.0,
+              angle_thresh=cfg.icp.angle_thresh, huber_delta=0.0, damping=cfg.icp.damping,
+              min_valid=pg.decimated_min_valid(cfg.icp.min_valid, decim))
+    args = (src_v, src_n, a.q_w, a.n_t, gate, T0)
+    T_k, nin_k, rs_k = kicp.gn_iterations(*args, **kw)
+    T_r, nin_r, rs_r = kicp.gn_iterations_ref(*args, **kw)
+    err = (T_k - T_r).abs().max().item()
+    nin_k, nin_r = float(nin_k), float(nin_r)
+    check(err < 5e-5, f"K3loop pose differs from its plain version by {err} (> 5e-5)")
+    check(abs(nin_k - nin_r) <= 1e-3 * max(nin_r, 1.0), f"K3loop inliers {nin_k} vs {nin_r}")
+    n_gate = float(gate.sum())
+    times = gn_times("K3loop", args, kw)
+    recs.append(record(
+        "K3loop", launches, err, times[1],
+        plain_time_ms(lambda: kicp.gn_iterations_ref(*args, **kw), 50),
+        n * (4 * 12 + 4) + 64 + 72, GN_FLOPS_PER_PIXEL * n_gate, None,
+        f"loop verification of keyframe {f['cand']}: {intr_d.height}x{intr_d.width}, N={n}, "
+        f"{n_gate} gated, inner_n=1, inliers {nin_k} vs {nin_r}, res {float(rs_k)!r} vs "
+        f"{float(rs_r)!r}; {gn_steps_note(times)}; {per_call['K3loop']} launches a "
+        f"verification ({rec.calls} verifications); tolerance: pose 5e-5; library: none",
+    ))
+    print(f"K2loop/K3loop: {per_call} launches a verification over {rec.calls} "
+          f"verifications", flush=True)
+    return recs
+
+
+def instance_pipeline_phase(cfg, frames, poses, card):
+    """``pipeline.run`` over the instance configuration's first
+    INSTANCE_PIPELINE_FRAMES frames with ``segment_fn`` giving the frame's
+    ground-truth masks every 2nd frame (``seg_every`` 2): each dispatched
+    segmentation is fused on the next frame (the last one after the loop),
+    K7 launches once per fused segmentation, and the table is populated."""
+    import check_accuracy_port as cap
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.ops import kernels
+
+    cfg = dataclasses.replace(cfg, instances=dataclasses.replace(cfg.instances, seg_every=2))
+    k = cfg.instances.max_instances
+    n = INSTANCE_PIPELINE_FRAMES
+
+    kernels.reset_launches()
+    res, rows, _, _ = cap.run_pipeline(
+        cfg, frames[:n], poses[:n], segment_fn=lambda f: synthetic.gt_segmentation(f.instance, k))
+    launches = launch_counts()
+    dispatched = [r["frame"] for r in rows if r["seg_dispatched"]]
+    fused_next = [r["frame"] for r in rows if "t_seg_fuse_ms" in r]
+    n_active = int(res.state.table.active.sum())
+    print(f"instance pipeline: {n} frames, segmentations dispatched on {dispatched}, fused "
+          f"on {fused_next} and the last after the loop; K7 launched {launches['K7']} "
+          f"times; {n_active} active instance rows; launches {launches} [{card}]",
+          flush=True)
+    check(dispatched == list(range(0, n, 2)), f"instance pipeline: dispatched on {dispatched}")
+    check(fused_next == [i + 1 for i in dispatched if i + 1 < n],
+          f"instance pipeline: fused on {fused_next}")
+    check(launches["K7"] == len(dispatched),
+          f"instance pipeline: K7 launched {launches['K7']} times for {len(dispatched)} "
+          f"segmentations")
+    check(n_active >= 3, f"instance pipeline: only {n_active} active instance rows")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -1268,6 +1546,11 @@ def main() -> None:
     # Last: the local loop drifts and ages a copy of the state's stamps and pose.
     local_loop_phase(rcfg, rstate, tex[n - 1], card)
     head_phase(icfg, istate, frames[:n], frames[n], card)
+    accuracy_phase(card)
+    rec = drift_pipeline_phase(card)
+    forced_keyframe_phase(frames[:n], poses[:n], card)
+    instance_pipeline_phase(icfg, frames, poses, card)
+    recs += loop_kernel_records(rec)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,9 +5,14 @@ State arrays are keyed by the state's field path, e.g. ``"T_wc"``,
 ``EngineConfig.map_kind``), ``"pred.depth"``, ``"votes.label"``, ``"table.cls"``,
 ``"stamp"``, ``"prev_coarse.0"`` (vmap; ``.1`` nmap, ``.2`` valid), the
 same names for this package's ``SlamState`` and the reference's, so a run
-of either engine can be carried into the other mid-sequence.  The
-segmentation head's weights come across from the reference's flax
-checkpoint by ``seghead_from_flax``.
+of either engine can be carried into the other mid-sequence.  The loop
+backend (``engine/posegraph.BackendState``: the keyframe store, the pose
+graph, the fern coder and the landmark bank) is keyed the same way, e.g.
+``"kf.vertex_c"``, ``"graph.T_ij"``, ``"coder.uv"``, ``"lm.za"``
+(``backend_to_numpy``, ``backend_from_numpy``); ``flatten`` and
+``unflatten`` give any nest of these states those names
+(``utils/checkpoint.py`` stores by them).  The segmentation head's weights
+come across from the reference's flax checkpoint by ``seghead_from_flax``.
 """
 
 from __future__ import annotations
@@ -20,8 +25,11 @@ import torch
 from instancefusion_tpu_torch import device as _device
 from instancefusion_tpu_torch.config import EngineConfig
 from instancefusion_tpu_torch.engine.instances import InstanceTable
+from instancefusion_tpu_torch.engine.posegraph import BackendState, KeyframeStore
 from instancefusion_tpu_torch.engine.slam import SlamState
+from instancefusion_tpu_torch.ops.ba import PairedObs, PoseGraph
 from instancefusion_tpu_torch.ops.blocks import BlockMap
+from instancefusion_tpu_torch.ops.ferns import FernCoder
 from instancefusion_tpu_torch.ops.labels import LabelVotes
 from instancefusion_tpu_torch.ops.raycast import RaycastMaps
 from instancefusion_tpu_torch.ops.tsdf import TsdfVolume
@@ -81,6 +89,70 @@ def state_from_numpy(arrays: dict, cfg: EngineConfig, device=None) -> SlamState:
         optional["prev_coarse"] = tuple(get(f"prev_coarse.{i}") for i in range(3))
     return SlamState(**{name: get(name) for name in _TOP}, **groups, **optional,
                      frame_count=int(arrays["frame_idx"]))
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """The leaves of a nest of NamedTuples and tuples keyed by field path
+    (tuple positions by index): ``{"T_wc": ..., "volume.sdf": ...,
+    "prev_coarse.0": ...}``.  Leaves that are not tuples (tensors, ints,
+    None) are kept as they are."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = zip(tree._fields, tree)
+    elif isinstance(tree, (tuple, list)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, value in items:
+        out.update(flatten(value, f"{prefix}.{key}" if prefix else key))
+    return out
+
+
+def unflatten(example, flat: dict, prefix: str = ""):
+    """``flatten``'s inverse: `example`'s structure with every leaf taken
+    from `flat`, tensors moved to the example leaf's device; a tensor of
+    another shape than the example's raises ``ValueError``."""
+    if isinstance(example, tuple):
+        def key(k):
+            return f"{prefix}.{k}" if prefix else str(k)
+        if hasattr(example, "_fields"):
+            return type(example)(*(unflatten(v, flat, key(k))
+                                   for k, v in zip(example._fields, example)))
+        return tuple(unflatten(v, flat, key(i)) for i, v in enumerate(example))
+    value = flat[prefix]
+    if isinstance(example, torch.Tensor):
+        value = torch.as_tensor(value).to(example.device)
+        if value.shape != example.shape:
+            raise ValueError(f"{prefix}: shape {tuple(value.shape)} != "
+                             f"{tuple(example.shape)}")
+    return value
+
+
+def backend_to_numpy(bs: BackendState) -> dict[str, np.ndarray]:
+    """Every tensor of the loop backend as a numpy array, keyed by field path."""
+    return {k: v.cpu().numpy() for k, v in flatten(bs).items() if v is not None}
+
+
+_BACKEND_GROUPS = {"kf": KeyframeStore, "graph": PoseGraph, "coder": FernCoder,
+                   "lm": PairedObs}
+
+
+def backend_from_numpy(arrays: dict, device=None) -> BackendState:
+    """A ``BackendState`` on ``device`` (default ``cuda``) from field-path
+    arrays (``backend_to_numpy``'s keys, the same for the reference)."""
+    dev = _device.resolve(device)
+
+    def get(name):
+        return torch.as_tensor(np.array(arrays[name]), device=dev)
+
+    fields = {}
+    for name in BackendState._fields:
+        cls = _BACKEND_GROUPS.get(name)
+        if cls is not None:
+            fields[name] = cls(**{f: get(f"{name}.{f}") for f in cls._fields})
+        elif name in arrays:
+            fields[name] = get(name)
+    return BackendState(**fields)
 
 
 # flax ``_ConvBlock_<i>`` -> ``blocks.<i>``; the three 1x1 output convs.

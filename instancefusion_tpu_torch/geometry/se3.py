@@ -5,10 +5,19 @@ Conventions as in the reference: poses are 4x4 matrices ``T`` with
 twists are ``xi = [v, w]`` (translation first).  Every function takes a
 leading batch shape.  Small-angle branches are blended with ``torch.where``
 as in the reference, so no value ever leaves the device.
+
+The functions that ``ops/ba.py`` differentiates (``se3_exp``, ``se3_log``,
+``so3_log``, ``se3_inverse``, ``transform_points``) run under
+``torch.func.vmap(torch.func.jacfwd(...))``: they build results out of
+place, and every per-angle quantity keeps a trailing axis of size 1.  Under
+forward-mode AD a Python scalar combined with a 0-dim tensor promotes the
+tangent to float64 (the scalar loses its wrapped-number status), and a
+per-example angle under ``vmap`` is 0-dim.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -40,13 +49,38 @@ def _exp_coeffs(theta2: torch.Tensor):
     return small, a, b
 
 
+@functools.lru_cache(maxsize=None)
+def _unit_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[[0, 0, 0, 1]] on `device`, made once by device fills (a tensor
+    copied from the host would wait for the device)."""
+    row = torch.zeros((1, 4), dtype=dtype, device=device)
+    row[:, 3:].fill_(1.0)
+    return row
+
+
+def _rigid(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """[[R, t], [0, 1]]: (..., 3, 3), (..., 3) -> (..., 4, 4), out of place."""
+    top = torch.cat([R, t[..., None]], dim=-1)
+    row = _unit_row(top.dtype, top.device).expand(*top.shape[:-2], 1, 4)
+    return torch.cat([top, row], dim=-2)
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula. w: (..., 3) axis-angle -> (..., 3, 3) rotation."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    _, a, b = _exp_coeffs(theta2)
+    K = _skew(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device)
+    return eye + a[..., None] * K + b[..., None] * (K @ K)
+
+
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Inverse of Rodrigues' formula. R: (..., 3, 3) -> (..., 3) axis-angle.
 
     Three regimes as in the reference: series near 0, the closed form in
     the middle, and the axis from the largest column of (R + I)/2 near pi.
     """
-    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    trace = R[..., 0, 0:1] + R[..., 1, 1:2] + R[..., 2, 2:3]  # (..., 1)
     cos_t = torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0)
     vee = torch.stack(
         [
@@ -64,7 +98,7 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     theta_mid = torch.arccos(safe_cos)
     scale_big = theta_mid / (2.0 * torch.sin(theta_mid) + _EPS)
     scale_small = 0.5 + (1.0 - cos_t) / 6.0
-    w_regular = torch.where(small, scale_small, scale_big)[..., None] * vee
+    w_regular = torch.where(small, scale_small, scale_big) * vee
 
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     B = 0.5 * (R + eye)
@@ -76,29 +110,25 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     axis = col / torch.clamp(torch.linalg.norm(col, dim=-1, keepdim=True), min=_EPS)
     sgn = torch.sign(torch.sum(vee * axis, dim=-1, keepdim=True))
     axis = torch.where(sgn < 0.0, -axis, axis)
-    sin_t = torch.sqrt(torch.sum(vee * vee, dim=-1) + _EPS * _EPS) * 0.5
+    sin_t = torch.sqrt(torch.sum(vee * vee, dim=-1, keepdim=True) + _EPS * _EPS) * 0.5
     theta_pi = math.pi - torch.arcsin(torch.clamp(sin_t, 0.0, 1.0 - 1e-6))
-    w_pi = theta_pi[..., None] * axis
-    return torch.where(near_pi[..., None], w_pi, w_regular)
+    w_pi = theta_pi * axis
+    return torch.where(near_pi, w_pi, w_regular)
 
 
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """xi = [v, w] (..., 6) -> (..., 4, 4) rigid transform."""
     v, w = xi[..., :3], xi[..., 3:]
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
     small, a, b = _exp_coeffs(theta2)
     c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0, (1.0 - a) / theta2)
     K = _skew(w)
     K2 = K @ K
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
-    R = eye + a[..., None, None] * K + b[..., None, None] * K2
-    V = eye + b[..., None, None] * K + c[..., None, None] * K2
+    R = eye + a[..., None] * K + b[..., None] * K2
+    V = eye + b[..., None] * K + c[..., None] * K2
     t = (V @ v[..., None])[..., 0]
-    T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3].fill_(1.0)  # a fill kernel; `= 1.0` would copy from the host
-    return T
+    return _rigid(R, t)
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
@@ -106,7 +136,7 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     w = so3_log(R)
-    theta2 = torch.sum(w * w, dim=-1)
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
     small, a, b = _exp_coeffs(theta2)
     K = _skew(w)
     K2 = K @ K
@@ -116,7 +146,7 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
         1.0 / 12.0 + theta2 / 720.0,
         (1.0 - a / (2.0 * b)) / torch.clamp(theta2, min=_EPS),
     )
-    Vinv = eye - 0.5 * K + vinv_c[..., None, None] * K2
+    Vinv = eye - 0.5 * K + vinv_c[..., None] * K2
     v = (Vinv @ t[..., None])[..., 0]
     return torch.cat([v, w], dim=-1)
 
@@ -126,11 +156,26 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
-    Ti = torch.zeros_like(T)
-    Ti[..., :3, :3] = Rt
-    Ti[..., :3, 3] = -(Rt @ t[..., None])[..., 0]
-    Ti[..., 3, 3].fill_(1.0)
-    return Ti
+    return _rigid(Rt, -(Rt @ t[..., None])[..., 0])
+
+
+def orthonormalize(T: torch.Tensor) -> torch.Tensor:
+    """Project the rotation part back onto SO(3) (Gram-Schmidt); the
+    translation column and the bottom row stay T's own.
+
+    Long products of exp-updates drift off the manifold in fp32, and a
+    drifted rotation pushes trace(R) past 3, across ``so3_log``'s branch
+    boundaries (pose-graph Gauss-Newton iterates through exactly that).
+    """
+    R = T[..., :3, :3]
+    c0 = R[..., :, 0]
+    c0 = c0 / torch.clamp(torch.linalg.norm(c0, dim=-1, keepdim=True), min=_EPS)
+    c1 = R[..., :, 1]
+    c1 = c1 - torch.sum(c0 * c1, dim=-1, keepdim=True) * c0
+    c1 = c1 / torch.clamp(torch.linalg.norm(c1, dim=-1, keepdim=True), min=_EPS)
+    c2 = torch.linalg.cross(c0, c1, dim=-1)
+    top = torch.cat([torch.stack([c0, c1, c2], dim=-1), T[..., :3, 3:]], dim=-1)
+    return torch.cat([top, T[..., 3:, :]], dim=-2)
 
 
 def transform_points(T: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

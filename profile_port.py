@@ -33,7 +33,15 @@ on the synthetic orbit, after 3 warm-up frames:
    ``allocate_touched``, touched list, association, K8 and the marched
    raycast;
 6. the dense path (config1): parts 0-2 with the map stages integrate and
-   raycast.
+   raycast;
+7. the pipeline (``pipeline.run``) on the sustained-drift rig
+   (``check_accuracy_port.py`` PIPELINE=1's defaults, 120 frames) with
+   every ``Timer`` phase synchronized at both ends, after one unmeasured
+   run: per phase the median ms over the frames that ran it and the count,
+   and the frames with a loop closure apart; then 12 frames of the
+   instance path with ground-truth masks every 2nd frame for the
+   segmentation phases.  ``--pipeline`` runs
+   this part alone.
 
 Prints a table per part, the card's name and power limit, and as its last
 line one JSON object with every number.  To compare two trees, run each
@@ -44,6 +52,8 @@ ms/frame varies widely from one machine and run to the next.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import time
 
@@ -51,6 +61,7 @@ import torch
 
 from chip_smoke import (bench_config, card_line, dense_config, instance_config,
                         march_config, rgb_config)
+from instancefusion_tpu_torch.utils.metrics import Timer
 
 
 def stages(cfg, state, frame):
@@ -291,12 +302,89 @@ def report_profile(name, prof, n):
               f"{1e3 * v['ms_per_frame'] / v['per_frame']:9.2f} us/launch  {kname[:100]}")
 
 
+class SyncedTimer:
+    """``utils.metrics.Timer`` with a device synchronize at both ends of a
+    phase, so a phase's ms is its own device work too."""
+
+    def __init__(self) -> None:
+        self.times_ms: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str, sync_tree=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.times_ms[name] = self.times_ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def phase_medians(rows) -> dict:
+    """Per ``t_<phase>_ms`` field: median ms over the frames that ran the
+    phase and their count; keyframe frames with a loop closure apart."""
+    out = {}
+    for key in sorted({k for r in rows for k in r if k.startswith("t_")}):
+        groups = {key: [r for r in rows if key in r]}
+        if key == "t_keyframe_ms":
+            groups = {"t_keyframe_ms (no loop)": [r for r in groups[key] if not r["loop_closed"]],
+                      "t_keyframe_ms (loop closed)": [r for r in groups[key] if r["loop_closed"]]}
+        for name, sel in groups.items():
+            vals = sorted(r[key] for r in sel)
+            if vals:
+                out[name] = {"median_ms": vals[len(vals) // 2], "frames": len(vals)}
+    return out
+
+
+def pipeline_profile(card) -> dict:
+    """Part 7: Timer's phases of ``pipeline.run`` on the drift rig and on 12
+    instance frames, each phase synchronized."""
+    import check_accuracy_port as cap
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.engine import pipeline
+    from instancefusion_tpu_torch.models.segmentation import PRETRAINED_SYNTHETIC
+
+    out = {}
+    pipeline.Timer = SyncedTimer
+    try:
+        cfg = cap.pipeline_config()
+        poses, frames = cap.rig_frames(cfg, 120, True, 1.6, 0.02, seed=0)
+        # A first run builds the kernels and meets every first call (the
+        # solver's, torch.func's); the second is the one measured.
+        cap.run_pipeline(cfg, frames, poses)
+        res, rows, errs, fps = cap.run_pipeline(cfg, frames, poses)
+        out["drift"] = {"phases": phase_medians(rows), "frames_per_s": fps,
+                        "keyframes": res.n_keyframes, "loops": res.n_loops}
+        icfg = instance_config(PRETRAINED_SYNTHETIC["num_classes"])
+        icfg = dataclasses.replace(icfg, instances=dataclasses.replace(icfg.instances,
+                                                                        seg_every=2))
+        k = icfg.instances.max_instances
+        ipos = synthetic.orbit_trajectory(12)
+        iframes = [synthetic.render_frame(ipos[i], icfg.intrinsics) for i in range(12)]
+        _, irows, _, ifps = cap.run_pipeline(
+            icfg, iframes, ipos, segment_fn=lambda f: synthetic.gt_segmentation(f.instance, k))
+        out["instance"] = {"phases": phase_medians(irows), "frames_per_s": ifps}
+    finally:
+        pipeline.Timer = Timer
+    for name, part in out.items():
+        print(f"pipeline, {name}: {part['frames_per_s']!r} frames/s with every phase "
+              f"synchronized; phase medians: " + ", ".join(
+                  f"{k} {v['median_ms']!r} ms ({v['frames']} frames)"
+                  for k, v in part["phases"].items()) + f" [{card}]")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=12)
+    ap.add_argument("--pipeline", action="store_true", help="run part 7 alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port.py needs an NVIDIA GPU")
+    if args.pipeline:
+        card = card_line()
+        prof = pipeline_profile(card)
+        print(card)
+        print(json.dumps({"card": card, "pipeline": prof}))
+        return
     from instancefusion_tpu_torch.datasets import synthetic
     from instancefusion_tpu_torch.engine import slam
 
@@ -371,13 +459,15 @@ def main() -> None:
         report_profile(f"slam.step ({name})", p_dev, n)
         extra.update({f"{name}_step_ms": p_step_ms, f"{name}_stage_ms": p_stage_ms,
                       f"{name}_step_profile": p_dev})
+    # 7. the pipeline's phases.
+    pipe = pipeline_profile(card)
     print(card)
     print(json.dumps({
         "card": card, "frames": n, "step_ms": step_ms, "stage_ms": stage_ms,
         "step_seg_ms": seg_step_ms, "instance_stage_ms": inst_ms, "head_ms": head_ms,
         "step_profile": main_dev, "step_seg_profile": inst_dev,
         "rgb_step_ms": rgb_step_ms, "rgb_stage_ms": rgb_stage_ms, "rgb_step_profile": rgb_dev,
-        **extra,
+        **extra, "pipeline": pipe,
     }))
 
 

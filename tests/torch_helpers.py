@@ -130,3 +130,139 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def port_frames(frames):
+    """Reference synthetic Frames (jax arrays) as the port's Frames on the
+    CPU, the same values."""
+    from instancefusion_tpu_torch.datasets.synthetic import Frame
+
+    return [Frame(*(t(x) for x in f)) for f in frames]
+
+
+def reference_backend_arrays(bs) -> dict:
+    """A reference BackendState as field-path numpy arrays (the keys of the
+    port's ``convert.backend_to_numpy``)."""
+    from instancefusion_tpu_torch import convert
+
+    return {k: np.asarray(v) for k, v in convert.flatten(jax.device_get(bs)).items()
+            if v is not None}
+
+
+class ListWriter:
+    """A MetricsWriter that keeps the records in a list."""
+
+    def __init__(self):
+        self.rows = []
+
+    def write(self, record):
+        self.rows.append(record)
+
+    def close(self):
+        pass
+
+
+@pytest.fixture
+def reference_coder(monkeypatch):
+    """Make the port's ``posegraph.allocate`` carry in the reference's fern
+    coder (``jax.random`` cannot be replayed in torch): the reference's own
+    empty backend for the configuration the port is given, through
+    ``convert.backend_from_numpy``.  Retrieval decisions then compare."""
+    from instancefusion_tpu.config import EngineConfig as RefConfig
+    from instancefusion_tpu.engine import posegraph as jpg
+    from instancefusion_tpu_torch import convert
+    from instancefusion_tpu_torch.engine import posegraph as ppg
+
+    def to_reference(obj):
+        import instancefusion_tpu.config as rc
+        import instancefusion_tpu.geometry.camera as rcam
+
+        if dataclasses.is_dataclass(obj):
+            cls = getattr(rc, type(obj).__name__, None) or getattr(rcam, type(obj).__name__)
+            return cls(**{f.name: to_reference(getattr(obj, f.name))
+                          for f in dataclasses.fields(obj)})
+        return obj
+
+    def allocate(cfg, decim=4, seed=0, device=None):
+        ref_cfg = to_reference(cfg)
+        assert isinstance(ref_cfg, RefConfig)
+        arrays = reference_backend_arrays(jpg.allocate(ref_cfg, decim, seed))
+        return convert.backend_from_numpy(arrays, device=device)
+
+    monkeypatch.setattr(ppg, "allocate", allocate)
+
+
+def drift_reference() -> None:
+    """The JAX reference on the sustained-drift rig, on the CPU:
+
+        python -m tests.torch_helpers          # N=120 SEED=0; ~17 min on 4 cores
+
+    ``_check_drift_pipeline.py``'s rig and configuration with the semantics
+    of its TPU run (splat prediction, the jnp path of every kernel): the
+    bare engine (``slam.step_donated``), then ``pipeline.run`` on the same
+    frames; prints each one's mean and largest translation error, the
+    sentinel's EWMA, the keyframes, loops, alarms and relocalizations.
+    ``chip_smoke.py``'s drift-pipeline phase prints the port's run beside
+    these numbers.  Env: N (120), SEED (noise key, 0).
+    """
+    import os
+    import time
+
+    from instancefusion_tpu.config import (
+        EngineConfig, IcpConfig, PoseGraphConfig, PreprocessConfig, TsdfConfig,
+    )
+    from instancefusion_tpu.datasets import synthetic
+    from instancefusion_tpu.engine import pipeline, slam
+    from instancefusion_tpu.geometry.camera import TUM_FR1
+    from instancefusion_tpu.utils.ate import ate_rmse
+
+    jax.config.update("jax_platforms", "cpu")
+    n, seed = int(os.environ.get("N", "120")), int(os.environ.get("SEED", "0"))
+    grid = 512
+    extent = grid * 0.0075
+    cfg = EngineConfig(
+        intrinsics=TUM_FR1,
+        tsdf=TsdfConfig(voxel_size=extent / grid * 2, trunc=6 * extent / grid * 2,
+                        grid_size=grid, origin=(-extent, -extent, 1.2 - extent),
+                        block_size=8, table_capacity=65536, touched_capacity=2048),
+        icp=IcpConfig(iters=(10, 5, 4), rgb_weight=0.0, assoc_every=(2, 2, 4), vel_seed=0.8),
+        raycast=RaycastConfig(near=0.2, far=4.0, use_depth_prior=True,
+                              screen_space_normals=True, use_splat=True, predict_color=False),
+        preprocess=PreprocessConfig(),
+        posegraph=PoseGraphConfig(keyframe_every=8, loop_dist_thresh=0.12),
+        map_kind="blocks", use_color=True, consistency_check=True, consistency_thresh=0.0012,
+    )
+    poses = synthetic.handheld_trajectory(n, sweep=1.6, shake_rot=0.02, shake_trans=0.008)
+    keys = jax.random.split(jax.random.PRNGKey(seed), n)
+    frames = [synthetic.add_sensor_noise(synthetic.render_frame(poses[i], cfg.intrinsics),
+                                         keys[i]) for i in range(n)]
+    gt = np.asarray(poses)
+    t0 = time.time()
+    state = slam.init_state(cfg, poses[0])
+    est, ewma = [], []
+    for f in frames:
+        state, info = slam.step_donated(cfg, state, f.depth, f.color)
+        est.append(np.asarray(state.T_wc))
+        ewma.append(float(info.drift_ewma) * 1e3)
+    err = np.linalg.norm(np.stack(est)[:, :3, 3] - gt[:, :3, 3], axis=-1) * 1e3
+    print(f"bare: mean {err.mean():.2f} mm, max {err.max():.2f} mm ({time.time() - t0:.0f} s)")
+    print("  error every 4th frame (mm):", np.round(err[::4], 1).tolist())
+    print("  sentinel EWMA every 4th frame (mm):", np.round(ewma[::4], 2).tolist())
+    rows = ListWriter()
+    t0 = time.time()
+    res = pipeline.run(cfg, frames, T_init_wc=gt[0], metrics=rows, enable_loops=True,
+                       relocalize_after=5)
+    err = np.linalg.norm(res.poses[:, :3, 3] - gt[:, :3, 3], axis=-1) * 1e3
+    print(f"pipeline: mean {err.mean():.2f} mm, max {err.max():.2f} mm, ATE "
+          f"{ate_rmse(res.poses, gt) * 1e3:.2f} mm, {res.n_keyframes} keyframes, "
+          f"{res.n_loops} loops, alarms on "
+          f"{sum(bool(r.get('drift_alarm', False)) for r in rows.rows)} frames, "
+          f"{sum(r['relocalized'] for r in rows.rows)} relocalizations "
+          f"({time.time() - t0:.0f} s)")
+    print("  error every 4th frame (mm):", np.round(err[::4], 1).tolist())
+    print("  keyframes:", [r["frame"] for r in rows.rows if r["keyframe"]],
+          "loops:", [r["frame"] for r in rows.rows if r["loop_closed"]])
+
+
+if __name__ == "__main__":
+    drift_reference()
