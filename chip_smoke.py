@@ -84,7 +84,25 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    populated table; then K2 and K3 at the loop-verification shape (the
    first verified loop's keyframe maps, 160x120, and the current frame
    decimated by 4), K2 bit-identical to its plain version and K3 (one step
-   a call) within its pose tolerance, timed like the others.
+   a call) within its pose tolerance, timed like the others;
+14. the sequence runner: ``cli.main`` on a TUM-format fixture written by the
+   port's PNG encoder (the synthetic orbit at config2's intrinsics, 20 poses
+   out and the same 20 back, 16-bit depth at 1/5000 m, rgb 5 ms after the
+   depth at 30 Hz, the ground truth) at config2's full width (TUM fr3
+   640x480, 512^3 block map of 1 cm voxels, table 65536, splat prediction)
+   with loops and active-window streaming every 4th frame (the radius
+   chosen from the fixture's block-centre distances, printed): every frame
+   tracked, ATE below the voxel, blocks streamed out and back in, K1-K5 at
+   least their count a frame; again without streaming (ATE below the
+   voxel); every block of that final map with distinct votes and stamps
+   out to the host store and back, bit for bit, ``n_active`` and
+   ``overflow`` unchanged; the exported mesh (>= 95% of its vertices within
+   a voxel of the scene), a rendered view read back by the port's decoder
+   (> 50% shaded), the trajectory read back within 1e-6; and ``cli.main``
+   with ``--instances --seg-head gt`` on 12 synthetic frames (K7 launched,
+   >= 3 instance PLYs).  It prints the decoder used, the frames/s with
+   decode, the stream phase's ms, the mesh and render ms and the PNG decode
+   ms a frame.
 
 Any failed check exits non-zero.  The second-to-last line is the card's
 name and power limit, the line before it a JSON record per kernel, and the
@@ -146,6 +164,12 @@ HEAD_FRAMES = 3
 # The accuracy bar's runs (_check_ate512.py's N), the drift rig's
 # (_check_drift_pipeline.py's N) and the instance pipeline's.
 ACCURACY_FRAMES, DRIFT_FRAMES, INSTANCE_PIPELINE_FRAMES = 40, 120, 12
+# The sequence runner's fixture: the orbit's poses out, then back; the
+# streaming cadence and the candidate radii (m) of its active window.
+SEQ_POSES, STREAM_EVERY = 20, 4
+STREAM_RADII = (2.2, 2.3, 2.4, 2.5, 2.6, 2.7, 2.8)
+# Blocks the replayed policy must bring back at the chosen radius.
+STREAM_MIN_IN = 20
 # A frame's head segmentation is held end to end against the CPU's where it
 # survives HEAD_TRIALS perturbations of the outputs by up to HEAD_EPS, above
 # the card's largest difference from the CPU (1.4e-5, on the logits).
@@ -1490,6 +1514,353 @@ def instance_pipeline_phase(cfg, frames, poses, card):
     check(n_active >= 3, f"instance pipeline: only {n_active} active instance rows")
 
 
+class RunRecorder:
+    """Wraps ``pipeline.run``: keeps the result of each run the CLI makes."""
+
+    def __init__(self):
+        from instancefusion_tpu_torch.engine import pipeline
+
+        self.mod, self.orig, self.results = pipeline, pipeline.run, []
+
+    def __enter__(self):
+        self.mod.run = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run = self.orig
+
+    def __call__(self, *args, **kw):
+        res = self.orig(*args, **kw)
+        self.results.append(res)
+        return res
+
+
+def write_tum_fixture(root: str, cfg):
+    """The sequence runner's TUM-format fixture, written by the port's PNG
+    encoder: the synthetic orbit at the configuration's intrinsics, out over
+    SEQ_POSES poses and back over the same poses reversed; 16-bit depth at
+    1/5000 m, 8-bit color, rgb stamps 5 ms after the depth's at 30 Hz, and
+    the ground truth.  Returns the 2 x SEQ_POSES poses (cuda) and the
+    frames of the SEQ_POSES poses."""
+    import os
+
+    from instancefusion_tpu_torch.datasets import png, synthetic
+    from instancefusion_tpu_torch.utils.ate import rotmat_to_quat
+
+    poses = synthetic.orbit_trajectory(SEQ_POSES)
+    frames = [synthetic.render_frame(poses[i], cfg.intrinsics) for i in range(SEQ_POSES)]
+    os.makedirs(os.path.join(root, "depth"))
+    os.makedirs(os.path.join(root, "rgb"))
+    for j, f in enumerate(frames):
+        png.write(os.path.join(root, "depth", f"{j}.png"),
+                  torch.round(f.depth * 5000.0).to(torch.int32).cpu().numpy().astype(np.uint16))
+        png.write(os.path.join(root, "rgb", f"{j}.png"),
+                  torch.round(f.color * 255.0).to(torch.uint8).cpu().numpy())
+    order = list(range(SEQ_POSES)) + list(range(SEQ_POSES))[::-1]
+    host = poses.cpu().numpy().astype(np.float64)
+    lines = {"depth.txt": [], "rgb.txt": [], "groundtruth.txt": []}
+    for k, j in enumerate(order):
+        ts = 1000.0 + k / 30.0
+        lines["depth.txt"].append(f"{ts:.6f} depth/{j}.png")
+        lines["rgb.txt"].append(f"{ts + 0.005:.6f} rgb/{j}.png")
+        vals = (*host[j, :3, 3], *rotmat_to_quat(host[j, :3, :3]))
+        lines["groundtruth.txt"].append(f"{ts:.6f} " + " ".join(f"{x:.9f}" for x in vals))
+    for name, rows in lines.items():
+        with open(os.path.join(root, name), "w") as fh:
+            fh.write("# timestamp data\n" + "\n".join(rows) + "\n")
+    return poses[order], frames
+
+
+def paeth_decode_ms(intr) -> float:
+    """Host ms of ``png.decode`` on one RGB image at the camera's size whose
+    rows all use filter 4 (Paeth): the decoder's per-byte slow path."""
+    import struct
+    import zlib
+
+    from instancefusion_tpu_torch.datasets import png
+
+    def chunk(kind, payload):
+        return (struct.pack(">I", len(payload)) + kind + payload
+                + struct.pack(">I", zlib.crc32(kind + payload)))
+
+    rows = np.random.default_rng(0).integers(
+        0, 256, (intr.height, 1 + 3 * intr.width), dtype=np.uint8)
+    rows[:, 0] = 4
+    data = (png.SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", intr.width, intr.height, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+    t0 = time.perf_counter()
+    png.decode(data)
+    return (time.perf_counter() - t0) * 1e3
+
+
+def choose_stream_radius(cfg, frames, poses, card) -> float:
+    """The active-window radius of the streamed run, from the block-centre
+    distances of the fixture: each frame's measurement band is sampled as
+    ``blocks.discover_allocate`` samples it (3 depths, every 4th pixel), and
+    the streaming policy (a tick every STREAM_EVERY frames: admit stored
+    blocks within the radius that are not on the device, evict those
+    beyond it) is replayed on those block sets at each candidate radius.
+    The largest radius the replay brings STREAM_MIN_IN blocks back at is
+    chosen: blocks leave the window before the turn and come back after
+    it, and as few as may are seen again from beyond the radius (then they
+    are allocated afresh while their stored copy waits)."""
+    from instancefusion_tpu_torch.geometry.camera import ray_directions
+
+    ts = cfg.tsdf
+    bsz = ts.block_size * ts.voxel_size
+    band = ts.trunc + ts.voxel_size
+    origin = torch.tensor(ts.origin, device=poses.device)
+    rays = ray_directions(cfg.intrinsics, poses.device)[::4, ::4].reshape(-1, 3)
+    order = list(range(SEQ_POSES)) + list(range(SEQ_POSES))[::-1]
+    seen = []
+    for j in range(SEQ_POSES):
+        d = frames[j].depth[::4, ::4].reshape(-1)
+        T = poses[order.index(j)]
+        dirs = rays @ T[:3, :3].T
+        g = torch.cat([torch.floor((T[:3, 3] + dirs * (d + off)[:, None] - origin) / bsz)[d > 0]
+                       for off in (-band, 0.0, band)])
+        seen.append(torch.unique(g.long(), dim=0).cpu().numpy())
+    eyes = poses[:, :3, 3].cpu().numpy()
+    centre = {}
+
+    def dist(b, e):
+        c = centre.get(b)
+        if c is None:
+            c = centre[b] = np.asarray(ts.origin) + (np.array(b) + 0.5) * bsz
+        return float(np.linalg.norm(c - e))
+
+    inview = [max(dist(tuple(b), eyes[k]) for b in seen[j].tolist())
+              for k, j in enumerate(order[:SEQ_POSES])]
+
+    def replay(radius):
+        dev, store, n_in, n_out, again = set(), set(), 0, 0, 0
+        for k, j in enumerate(order):
+            ids = set(map(tuple, seen[j].tolist()))
+            again += len((ids - dev) & store)
+            dev |= ids
+            if (k + 1) % STREAM_EVERY == 0:
+                adm = {b for b in store if b not in dev and dist(b, eyes[k]) <= radius}
+                ev = {b for b in dev | adm if dist(b, eyes[k]) > radius}
+                n_in, n_out = n_in + len(adm), n_out + len(ev)
+                store, dev = (store - adm) | ev, (dev | adm) - ev
+        return n_in, n_out, again
+
+    table = {r: replay(r) for r in STREAM_RADII}
+    radius = max((r for r, (n_in, n_out, _) in table.items() if n_in >= STREAM_MIN_IN and n_out > 0),
+                 default=None)
+    print(f"sequence runner: block-centre distances of each frame's band blocks on the way "
+          f"out, the largest in view (m): {[round(x, 3) for x in inview]}; replayed policy "
+          f"(stream_in, stream_out, blocks seen again while stored) by radius: {table}; "
+          f"chosen radius {radius} m [{card}]", flush=True)
+    check(radius is not None, "sequence runner: no candidate radius streams blocks out and in")
+    return radius
+
+
+def run_cli(argv):
+    """``cli.main(argv)`` with its standard output and error captured; the
+    pipeline results it made, its summary, its stderr and its wall time."""
+    import contextlib
+    import io
+
+    from instancefusion_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with RunRecorder() as rec, contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"cli {argv}: exit {rc}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])["summary"]
+    return rec.results, summary, err.getvalue(), wall
+
+
+def streaming_roundtrip(cfg, state, card):
+    """Every block of a full-width map out to the host store and back: ticks
+    at radius 0 evict evict_cap rows each until the device holds none, then
+    ticks at radius 1e9 admit admit_cap rows each until the store is empty.
+    Each block's sdf, weight, color, votes and stamp must come back bit for
+    bit, keyed by its block coordinates; n_active and overflow unchanged."""
+    from instancefusion_tpu_torch.engine.streaming import BlockStreamer
+    from instancefusion_tpu_torch.ops import blocks, labels
+
+    vol = state.volume
+    c, b3 = vol.sdf.shape
+    nb = blocks.num_blocks_per_axis(cfg.tsdf)
+    slot = torch.arange(c, device=vol.sdf.device, dtype=torch.int32)
+    # Distinct votes and stamps per slot and voxel, made on the device.
+    vox = torch.arange(b3, device=slot.device, dtype=torch.int32)
+    votes = labels.LabelVotes(label=(slot[:, None] * 7 + vox[None, :]) % 97 - 1,
+                              count=((slot[:, None] + vox[None, :]) % 13).float() * 0.5)
+    stamp = torch.stack([slot + 1, torch.full_like(slot, 33)], -1)
+
+    def by_block(v, vt, st):
+        n = int(v.n_active)
+        bc = v.block_coords[:n].long()
+        order = torch.argsort((bc[:, 0] * nb + bc[:, 1]) * nb + bc[:, 2])
+        return [x[:n][order] for x in (v.block_coords, v.sdf, v.weight, v.color,
+                                       vt.label, vt.count, st)]
+
+    golden = by_block(vol, votes, stamp)
+    n0, over0 = int(vol.n_active), int(vol.overflow)
+    streamer = BlockStreamer(cfg.tsdf, radius=0.0, evict_cap=1024, admit_cap=1024,
+                             with_color=True, with_votes=True, with_stamps=True)
+    T = state.T_wc
+    ticks = {"stream_out": [], "stream_in": []}
+    for key, done in (("stream_out", lambda: int(vol.n_active) == 0),
+                      ("stream_in", lambda: not streamer.store)):
+        while not done():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            vol, votes, stamp, stats = streamer.tick(vol, votes, T, stamp)
+            torch.cuda.synchronize()
+            ticks[key].append((stats[key], (time.perf_counter() - t0) * 1e3))
+            check(stats[key] > 0 and len(ticks[key]) <= n0 // 1024 + 2,
+                  f"round trip: {key} stalled at tick {len(ticks[key])} ({stats})")
+        if key == "stream_out":
+            check(len(streamer.store) == n0, f"round trip: {len(streamer.store)} stored of {n0}")
+            streamer.radius = 1e9
+    back = by_block(vol, votes, stamp)
+    names = ("coords", "sdf", "weight", "color", "label", "count", "stamp")
+    bad = [name for name, a, b in zip(names, golden, back) if not torch.equal(a, b)]
+    print(f"streaming round trip at full width: {n0} blocks out and back, (blocks, ms) of "
+          f"each tick {ticks}; n_active {int(vol.n_active)} (was {n0}), overflow "
+          f"{int(vol.overflow)} (was {over0}); fields that differ: {bad} [{card}]", flush=True)
+    check(not bad, f"round trip: {bad} differ after the round trip")
+    check(int(vol.n_active) == n0 and int(vol.overflow) == over0,
+          "round trip: n_active or overflow changed")
+
+
+def sequence_runner_phase(card):
+    """Phase 14: ``cli.main`` on a TUM-format fixture at config2's full width
+    (640x480, 512^3 block map of 1 cm voxels, table 65536, splat
+    prediction), with loops and active-window streaming, then without
+    streaming; the streaming round trip of the final map at full width; the
+    mesh, render, trajectory and instance exports."""
+    import os
+    import tempfile
+
+    from instancefusion_tpu_torch.config import config2_tum_fr3_long_office
+    from instancefusion_tpu_torch.datasets import png, synthetic, tum
+    from instancefusion_tpu_torch.ops import kernels
+    from instancefusion_tpu_torch.utils import meshing, render
+    from instancefusion_tpu_torch.utils.ate import rotmat_to_quat
+
+    cfg = config2_tum_fr3_long_office()
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir = os.path.join(tmp, "seq")
+        poses, frames = write_tum_fixture(seq_dir, cfg)
+        radius = choose_stream_radius(cfg, frames, poses, card)
+        del frames
+        decode = tum.TumSequence(seq_dir, cfg.intrinsics)
+        t0 = time.perf_counter()
+        for i in range(4):
+            decode.decode(i)
+        png_ms = (time.perf_counter() - t0) * 1e3 / 4
+        paeth_ms = paeth_decode_ms(cfg.intrinsics)
+
+        paths = {k: os.path.join(tmp, k) for k in ("traj.txt", "mesh.ply", "m.jsonl",
+                                                   "m0.jsonl", "inst", "view.png")}
+        base = ["run", "--preset", "config2", "--dataset", seq_dir, "--frames",
+                str(2 * SEQ_POSES), "--loops", "--quiet"]
+        kernels.reset_launches()
+        (res,), s, err, wall = run_cli(base + [
+            "--stream-every", str(STREAM_EVERY), "--stream-radius", str(radius),
+            "--export-traj", paths["traj.txt"], "--export-mesh", paths["mesh.ply"],
+            "--metrics-out", paths["m.jsonl"]])
+        launches = launch_counts()
+        decoder = [ln.split(": ", 1)[1] for ln in err.splitlines() if ln.startswith("decoder: ")]
+        rows = [json.loads(ln) for ln in open(paths["m.jsonl"])]
+        ticks = [r for r in rows if "stream_out" in r]
+        s_in, s_out = sum(r["stream_in"] for r in ticks), sum(r["stream_out"] for r in ticks)
+        stream_ms = [r["t_stream_ms"] for r in ticks]
+        print(f"sequence runner, streamed: decoder {decoder}, {s['frames']} frames, "
+              f"{s['fps']!r} frames/s end to end with decode ({wall!r} s for cli.main), "
+              f"ATE {s.get('ate_rmse_m', float('nan')) * 1e3!r} mm, {s['keyframes']} "
+              f"keyframes, {s['loop_closures']} loops; stream_in {s_in}, stream_out {s_out} "
+              f"over {len(ticks)} ticks ({[(r['frame'], r['stream_in'], r['stream_out']) for r in ticks]}), "
+              f"stored at the end {ticks[-1]['stored_blocks'] if ticks else None}; stream phase "
+              f"ms {stream_ms}; PNG decode {png_ms!r} ms a frame (depth and color, filter 0, "
+              f"host; one RGB image of Paeth rows: {paeth_ms!r} ms); "
+              f"launches {launches} [{card}]", flush=True)
+        check(decoder in (["native"], ["png"]), f"sequence runner: decoder line {decoder}")
+        check(s["frames"] == 2 * SEQ_POSES and all(r["track_ok"] for r in rows),
+              f"sequence runner: frames {s['frames']}, tracking failed on "
+              f"{[r['frame'] for r in rows if not r['track_ok']]}")
+        check(s.get("ate_rmse_m", 1.0) < cfg.tsdf.voxel_size,
+              f"sequence runner: streamed ATE {s.get('ate_rmse_m')} >= {cfg.tsdf.voxel_size}")
+        check(s_out > 0 and s_in > 0, f"sequence runner: stream_in {s_in}, stream_out {s_out}")
+        for k, per in PER_FRAME.items():
+            check(launches[k] >= per * 2 * SEQ_POSES,
+                  f"sequence runner: {k} launched {launches[k]} < {per * 2 * SEQ_POSES}")
+
+        # The trajectory reads back within 1e-6 of the run's poses.
+        traj = np.loadtxt(paths["traj.txt"])
+        want = np.array([[i / 30.0, *T[:3, 3], *rotmat_to_quat(T[:3, :3])]
+                         for i, T in enumerate(res.poses)])
+        traj_err = float(np.abs(traj - want).max())
+        check(traj.shape == want.shape and traj_err <= 1e-6,
+              f"sequence runner: trajectory reads back {traj_err} off")
+
+        # The mesh: within one voxel of the scene's surface.
+        with open(paths["mesh.ply"]) as fh:
+            head = [fh.readline().strip()]
+            while head[-1] != "end_header":
+                head.append(fh.readline().strip())
+        n_v = int(head[2].split()[2])
+        near = 0.0
+        if n_v:
+            verts = np.loadtxt(paths["mesh.ply"], skiprows=len(head), max_rows=n_v,
+                               usecols=(0, 1, 2), ndmin=2)
+            sdf, _ = synthetic.scene_sdf(torch.tensor(verts, dtype=torch.float32,
+                                                      device=poses.device))
+            near = float((sdf.abs() < cfg.tsdf.voxel_size).float().mean())
+
+        kernels.reset_launches()
+        (res0,), s0, _, wall0 = run_cli(base + ["--metrics-out", paths["m0.jsonl"]])
+        rows0 = [json.loads(ln) for ln in open(paths["m0.jsonl"])]
+        check(all(r["track_ok"] for r in rows0) and s0.get("ate_rmse_m", 1.0) < cfg.tsdf.voxel_size,
+              f"sequence runner: unstreamed ATE {s0.get('ate_rmse_m')}")
+        vol0 = res0.state.volume
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verts0, tris0, _ = meshing.extract_mesh(vol0, cfg.tsdf, with_color=True)
+        torch.cuda.synchronize()
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        box = meshing.block_box(vol0, cfg.tsdf)[0].shape
+        t0 = time.perf_counter()
+        imgs = render.render_view(vol0, res0.state.T_wc, cfg.intrinsics, cfg.tsdf, cfg.raycast)
+        render_ms = (time.perf_counter() - t0) * 1e3
+        render.save_png(paths["view.png"], imgs["shaded"])
+        back = png.read(paths["view.png"])
+        shaded_share = float((back.max(axis=-1) > 0).mean())
+        print(f"sequence runner, unstreamed: ATE {s0['ate_rmse_m'] * 1e3!r} mm (streamed "
+              f"{s['ate_rmse_m'] * 1e3!r} mm), {s0['fps']!r} frames/s end to end ({wall0!r} "
+              f"s), {s0['keyframes']} keyframes, {s0['loop_closures']} loops; exported mesh "
+              f"{n_v} vertices, {near!r} within one voxel of the scene; mesh of the unstreamed "
+              f"map {verts0.shape[0]} vertices, {tris0.shape[0]} triangles in {mesh_ms!r} ms "
+              f"(box {tuple(box)} of the {cfg.tsdf.grid_size}^3 grid); render {render_ms!r} "
+              f"ms, shaded share {shaded_share!r}; trajectory read back within {traj_err!r} "
+              f"[{card}]", flush=True)
+        check(n_v > 0 and near >= 0.95, f"sequence runner: mesh {n_v} vertices, {near} near")
+        check(shaded_share > 0.5, f"sequence runner: render shaded share {shaded_share}")
+        del res, imgs
+        streaming_roundtrip(cfg, res0.state, card)
+        del res0, vol0
+
+        kernels.reset_launches()
+        _, si, erri, _ = run_cli(["run", "--preset", "config2", "--dataset", "synthetic",
+                                  "--frames", str(INSTANCE_PIPELINE_FRAMES), "--instances",
+                                  "--seg-head", "gt", "--export-instances", paths["inst"]])
+        launches = launch_counts()
+        plys = sorted(os.listdir(paths["inst"])) if os.path.isdir(paths["inst"]) else []
+        print(f"sequence runner, instances: {si['frames']} synthetic frames, K7 launched "
+              f"{launches['K7']} times, instance models {plys} [{card}]", flush=True)
+        check(launches["K7"] > 0, "sequence runner: K7 never launched with --instances")
+        check(len(plys) >= 3, f"sequence runner: only {len(plys)} instance PLYs")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -1551,6 +1922,7 @@ def main() -> None:
     forced_keyframe_phase(frames[:n], poses[:n], card)
     instance_pipeline_phase(icfg, frames, poses, card)
     recs += loop_kernel_records(rec)
+    sequence_runner_phase(card)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,18 @@ loop closures move the world-from-map anchor ``T_wm`` (the world pose of
 frame k is T_wm T_mc(k)), so the engine pose never jumps against the fused
 geometry.
 
-Sharded maps (``num_shards > 1``) and active-window streaming
-(``stream_every > 0``) are later slices of the port: they raise.
+With ``stream_every > 0`` on the block map, a ``BlockStreamer``
+(``engine/streaming.py``) keeps only the blocks within ``stream_radius`` of
+the camera on the device: it ticks every ``stream_every`` frames and
+before the re-render of a relocalization, and its host store is saved
+beside each checkpoint and restored on resume.  Sharded maps
+(``num_shards > 1``) are a later slice of the port: they raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Iterable
 
@@ -35,6 +40,7 @@ from instancefusion_tpu_torch.engine import instances as inst
 from instancefusion_tpu_torch.engine import localloop as ll
 from instancefusion_tpu_torch.engine import posegraph as pg
 from instancefusion_tpu_torch.engine import slam
+from instancefusion_tpu_torch.engine.streaming import BlockStreamer
 from instancefusion_tpu_torch.geometry.se3 import se3_inverse
 from instancefusion_tpu_torch.ops import blocks, preprocess
 from instancefusion_tpu_torch.utils import checkpoint as ckpt
@@ -76,11 +82,16 @@ def _anchor_correction(backend, kf_cur, T_before, T_wm):
     return corr @ T_wm
 
 
-def _check_supported(cfg: EngineConfig, stream_every: int) -> None:
+def _check_supported(cfg: EngineConfig) -> None:
     if cfg.num_shards > 1:
         raise NotImplementedError("sharded maps are not ported yet")
-    if stream_every > 0:
-        raise NotImplementedError("active-window streaming is not ported yet")
+
+
+def _stream(streamer: BlockStreamer, state, T_wc):
+    """One streaming tick at pose `T_wc`: the state with its map, votes and
+    stamps updated, and the tick's stats."""
+    volume, votes, stamp, stats = streamer.tick(state.volume, state.votes, T_wc, state.stamp)
+    return state._replace(volume=volume, votes=votes, stamp=stamp), stats
 
 
 def run(
@@ -113,10 +124,10 @@ def run(
     -> Segmentation | None`` supplies instance masks at the
     ``cfg.instances.seg_every`` cadence; its result is fused one frame
     later against its own frame's depth and pose, so the head's device
-    work overlaps the next step.  ``stream_radius``, ``reshard_every`` and
-    ``reshard_skew`` belong to the paths that raise (streaming, shards).
+    work overlaps the next step.  ``reshard_every`` and ``reshard_skew``
+    belong to the sharded path, which raises.
     """
-    _check_supported(cfg, stream_every)
+    _check_supported(cfg)
     dev = _device.resolve(device)
     state = slam.init_state(cfg, T_init_wc, dev)
 
@@ -135,6 +146,17 @@ def run(
                 checkpoint_dir, (state, backend, T_wm), cfg)
         except FileNotFoundError:
             pass
+
+    streamer = None
+    if stream_every and cfg.map_kind == "blocks":
+        streamer = BlockStreamer(cfg.tsdf, radius=stream_radius, with_color=cfg.use_color,
+                                 with_votes=cfg.use_instances, with_stamps=cfg.track_stamps)
+        if resume and checkpoint_dir and start_frame:
+            # Evicted blocks live only in the host store: restore it with
+            # the device state or they are gone.
+            spath = os.path.join(checkpoint_dir, f"step_{start_frame}.streamer.npz")
+            if os.path.exists(spath):
+                streamer.load(spath)
 
     pgc = cfg.posegraph
     est: list[torch.Tensor] = []
@@ -175,6 +197,10 @@ def run(
                         # map-frame.  No map-based polish: the ICP against
                         # the keyframe's raw geometry is the better estimate.
                         T_new = se3_inverse(T_wm) @ (T_cand @ T_rel)
+                        if streamer is not None:
+                            # The re-seated view may cover streamed-out
+                            # geometry: admit the window there first.
+                            state, _ = _stream(streamer, state, T_new)
                         # The stale prediction views the wrong part of the
                         # map: re-render it from the re-seated pose.  The
                         # step never writes a pose in place, so T_new may
@@ -318,6 +344,10 @@ def run(
                 state = state._replace(stamp=out[2])
         if retire_every and cfg.use_instances and (i + 1) % retire_every == 0:
             state = state._replace(table=inst.retire_stale(state.table, cfg.instances))
+        stream_stats = {}
+        if streamer is not None and (i + 1) % stream_every == 0:
+            with timer.phase("stream"):
+                state, stream_stats = _stream(streamer, state, state.T_wc)
 
         est.append(T_wm @ state.T_wc)
         if metrics is not None:
@@ -339,6 +369,7 @@ def run(
                 "lost_frames": int(state.lost_frames),
                 "reshard_migrated": 0,
                 **drift,
+                **stream_stats,
                 **{f"t_{k}_ms": round(v, 2) for k, v in timer.times_ms.items()},
             })
             timer.times_ms.clear()
@@ -346,6 +377,8 @@ def run(
         if checkpoint_dir and (i + 1) % checkpoint_every == 0:
             sync_fetch((state, backend, T_wm))
             ckpt.save(checkpoint_dir, (state, backend, T_wm), cfg, i + 1)
+            if streamer is not None:
+                streamer.save(os.path.join(checkpoint_dir, f"step_{i + 1}.streamer.npz"))
 
     # Flush the last in-flight segmentation so its votes are not lost.
     if pending_seg is not None:

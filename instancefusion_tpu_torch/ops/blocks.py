@@ -600,7 +600,21 @@ def clean(bm: BlockMap, cfg: TsdfConfig, min_weight: float = 1.0, votes=None,
     best_w = torch.amax(bm.weight, dim=1)
     observed = torch.where(bm.weight > 0.0, bm.sdf, UNOBSERVED)
     empty = torch.amin(observed, dim=1) > 0.98
-    live = allocated & (best_w >= min_weight) & ~empty
+    bm_new, votes_new, stamp_new = _compact(bm, allocated & (best_w >= min_weight) & ~empty,
+                                            votes, stamp)
+    if stamp is not None:
+        return bm_new, votes_new, stamp_new
+    return bm_new, votes_new
+
+
+def _compact(bm: BlockMap, live: torch.Tensor, votes=None, stamp=None):
+    """Keep the `live` slots (bool[C]): they move to the front in their old
+    order (a stable partition), freed rows take the empty fills (sdf
+    UNOBSERVED, weight 0, color 0, coords -1; votes label -1, count 0;
+    stamp 0) and the directory is remapped.  Returns (bm, votes, stamp),
+    votes and stamp None when not given."""
+    c = bm.sdf.shape[0]
+    slot_ids = torch.arange(c, dtype=torch.int32, device=bm.sdf.device)
     n_live = torch.sum(live, dtype=torch.int32)
     perm = torch.argsort((~live).to(torch.int32), stable=True)
     order = torch.cumsum(live.to(torch.int32), 0, dtype=torch.int32) - 1  # old -> new
@@ -626,6 +640,125 @@ def clean(bm: BlockMap, cfg: TsdfConfig, min_weight: float = 1.0, votes=None,
     votes_new = None
     if votes is not None:
         votes_new = type(votes)(label=take(votes.label, -1), count=take(votes.count, 0.0))
+    return bm_new, votes_new, None if stamp is None else take(stamp, 0)
+
+
+def frustum_allocated_mask(bm: BlockMap, T_wc: torch.Tensor, intr: Intrinsics,
+                           cfg: TsdfConfig, near: float, far: float) -> torch.Tensor:
+    """Allocated blocks whose center is in the view frustum, as bool[Nb^3]
+    over the directory (``frustum_mask``'s slots scattered to their block
+    ids)."""
+    nb = num_blocks_per_axis(cfg)
+    nb3 = nb * nb * nb
+    bc = bm.block_coords
+    inview = frustum_mask(bm, T_wc, intr, cfg, near, far)
+    flat = torch.where(inview, (bc[:, 0] * nb + bc[:, 1]) * nb + bc[:, 2],
+                       torch.full_like(bc[:, 0], nb3))
+    mask = torch.zeros(nb3 + 1, dtype=torch.bool, device=bc.device)
+    mask[flat.long()] = True
+    return mask[:nb3]
+
+
+def partition_window(bm: BlockMap, cfg: TsdfConfig, center_w: torch.Tensor, radius: float,
+                     evict_cap: int, votes=None, stamp: torch.Tensor | None = None):
+    """Split the live blocks into an active window (kept) and cold rows
+    (evicted), for block streaming (``engine/streaming.py``).
+
+    Blocks whose center is farther than `radius` from `center_w` (3,) are
+    cold; the first `evict_cap` of them in slot order are copied into a
+    bounded eviction buffer and dropped, the rest stay live for a later
+    call.  The survivors are compacted as ``clean`` compacts them, with the
+    per-slot `votes` and `stamp` (i32[C, 2]) moving with their rows.
+
+    Returns (bm, votes, evicted) or, with `stamp`, (bm, votes, evicted,
+    stamp); ``evicted`` holds coords i32[E,3] (-1 where invalid), sdf,
+    weight (0 where invalid) and color payload rows, valid bool[E], label
+    and count rows with `votes`, and stamp rows (0 where invalid) with
+    `stamp`.
+    """
+    c = bm.sdf.shape[0]
+    slot_ids = torch.arange(c, dtype=torch.int32, device=bm.sdf.device)
+    allocated = (slot_ids < bm.n_active) & (bm.block_coords[:, 0] >= 0)
+    bsz = cfg.block_size * cfg.voxel_size
+    half = (bm.block_coords.float() + 0.5) * bsz
+    centers = torch.stack([half[:, a] + cfg.origin[a] for a in range(3)], -1)
+    dist = torch.linalg.norm(centers - center_w[None, :], dim=-1)
+    cold = allocated & (dist > radius)
+
+    eidx, evalid = compact_mask_indices(cold, evict_cap)
+    rows = eidx.long()
+    evicted = {
+        "coords": torch.where(evalid[:, None], bm.block_coords[rows], -1),
+        "sdf": bm.sdf[rows],
+        "weight": torch.where(evalid[:, None], bm.weight[rows], 0.0),
+        "valid": evalid,
+    }
+    if bm.color.numel():
+        evicted["color"] = bm.color[rows]
+    if votes is not None:
+        evicted["label"] = votes.label[rows]
+        evicted["count"] = votes.count[rows]
     if stamp is not None:
-        return bm_new, votes_new, take(stamp, 0)
-    return bm_new, votes_new
+        evicted["stamp"] = torch.where(evalid[:, None], stamp[rows], 0)
+
+    sel = torch.zeros(c + 1, dtype=torch.bool, device=bm.sdf.device)
+    sel[torch.where(evalid, eidx, c).long()] = True
+    bm_new, votes_new, stamp_new = _compact(bm, allocated & ~sel[:c], votes, stamp)
+    if stamp is not None:
+        return bm_new, votes_new, evicted, stamp_new
+    return bm_new, votes_new, evicted
+
+
+def admit_rows(bm: BlockMap, cfg: TsdfConfig, coords: torch.Tensor, sdf: torch.Tensor,
+               weight: torch.Tensor, color: torch.Tensor | None, valid: torch.Tensor,
+               votes=None, label: torch.Tensor | None = None,
+               count: torch.Tensor | None = None, stamp: torch.Tensor | None = None,
+               row_stamp: torch.Tensor | None = None):
+    """Re-insert streamed-out payload rows (i32[E,3] `coords`, their sdf,
+    weight and color rows, bool[E] `valid`) by prefix-sum slot assignment.
+
+    Rows whose block is allocated already are skipped (the live copy wins);
+    rows beyond capacity (the last ``RESERVED_SLOTS`` stay free) are dropped
+    and counted in ``overflow``.  `label` and `count` rows go into `votes`,
+    `row_stamp` (default 0) into the per-slot `stamp`.
+
+    Returns (bm, votes, fits bool[E]) or, with `stamp`, (bm, votes, fits,
+    stamp); ``fits`` marks the rows admitted.
+    """
+    nb = num_blocks_per_axis(cfg)
+    c = bm.sdf.shape[0]
+    inb = valid & torch.all((coords >= 0) & (coords < nb), dim=-1)
+    flat = (coords[:, 0] * nb + coords[:, 1]) * nb + coords[:, 2]
+    flat_c = torch.where(inb, flat, torch.zeros_like(flat))
+    already = bm.directory.reshape(-1)[flat_c.long()] >= 0
+    need = inb & ~already
+    order = torch.cumsum(need.to(torch.int32), 0, dtype=torch.int32) - 1
+    new_slot = bm.n_active + order
+    fits = need & (new_slot < c - RESERVED_SLOTS)
+    n_new = torch.sum(fits, dtype=torch.int32)
+    n_drop = torch.sum(need, dtype=torch.int32) - n_new
+
+    directory = _set_with_spill(
+        bm.directory.reshape(-1), torch.where(fits, flat, torch.full_like(flat, nb ** 3)),
+        new_slot)
+    out = torch.where(fits, new_slot, torch.full_like(new_slot, c))
+    bm_new = bm._replace(
+        directory=directory.reshape(bm.directory.shape),
+        block_coords=_set_with_spill(bm.block_coords, out, coords),
+        n_active=bm.n_active + n_new,
+        overflow=bm.overflow + n_drop,
+        sdf=_set_with_spill(bm.sdf, out, sdf),
+        weight=_set_with_spill(bm.weight, out, weight),
+    )
+    if color is not None and bm.color.numel():
+        bm_new = bm_new._replace(color=_set_with_spill(bm.color, out, color))
+    votes_new = votes
+    if votes is not None and label is not None:
+        votes_new = type(votes)(label=_set_with_spill(votes.label, out, label),
+                                count=_set_with_spill(votes.count, out, count))
+    if stamp is not None:
+        if row_stamp is None:
+            row_stamp = torch.zeros((coords.shape[0],) + stamp.shape[1:], dtype=stamp.dtype,
+                                    device=stamp.device)
+        return bm_new, votes_new, fits, _set_with_spill(stamp, out, row_stamp)
+    return bm_new, votes_new, fits
