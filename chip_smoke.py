@@ -102,11 +102,34 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    with ``--instances --seg-head gt`` on 12 synthetic frames (K7 launched,
    >= 3 instance PLYs).  It prints the decoder used, the frames/s with
    decode, the stream phase's ms, the mesh and render ms and the PNG decode
-   ms a frame.
+   ms a frame;
+15. the sharded map: 8 ranks on the card over gloo (one ``RankPool``; the
+   kernels are built before the ranks start).  (a) config4 at full width
+   (TUM fr3 640x480, 512^3 grid of 2 cm voxels, table 65536 = 8 x 8192
+   rows, splat prediction) through ``slam_sharded.step`` over 3 + 30 frames
+   of the orbit, against the one-card engine with ``num_shards=1`` on the
+   same frames: every frame tracked, ATE below the voxel, the final pose
+   within half a voxel, allocation sets equal within 2% + 2 blocks,
+   coverage within 10%, rows on at least 2 shards (tests/test_shard.py's
+   bounds), every rank's pose, directory and n_active equal to rank 0's on
+   every frame, and each rank's launches (K1 1, K2 and K3 9, K4 and K5 1 a
+   frame, all with color); (b) the marched halo raycast of that map against
+   the one-card marched raycast of the same map gathered; (c) the drift rig
+   of phase 12 through ``pipeline.run`` with 8 shards: a finite pose every
+   frame, a verified loop, the ranks' poses equal, and the sharded Schur
+   terms equal to the unsharded ``paired_terms`` within 1e-5 relative (in
+   fp64; the fp32 rounding of both is printed); (d) ``cli.main run --preset
+   config4 --shards 8`` on phase 14's fixture with loops, streaming, a
+   reshard poll every 4th frame (each reshard checked to keep the block set
+   and one directory entry per live row), exports from rank 0, a checkpoint
+   at frame 20 and a resume from it.  It prints ms a frame against the
+   one-card run, the collectives' calls, bytes and ms a frame, peak memory
+   per rank, the backend, the halo rows per seam and each rank's decode ms.
 
 Any failed check exits non-zero.  The second-to-last line is the card's
-name and power limit, the line before it a JSON record per kernel, and the
-last line ``{"ok": true, "device": {...}}``.
+name and power limit, the line before it a JSON record per kernel (with
+``sharded_launches_per_rank``, its launches on a rank in phase 15 (a)),
+and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -167,6 +190,10 @@ ACCURACY_FRAMES, DRIFT_FRAMES, INSTANCE_PIPELINE_FRAMES = 40, 120, 12
 # The sequence runner's fixture: the orbit's poses out, then back; the
 # streaming cadence and the candidate radii (m) of its active window.
 SEQ_POSES, STREAM_EVERY = 20, 4
+# The largest difference between two card runs of phase 15 (d) seen before
+# the spread was measured in the same call: a resumed run's trajectory
+# against the uninterrupted one's, 1.57e-3 m (PERF.md, the sharded map).
+RESUME_SPREAD_M = 1.6e-3
 STREAM_RADII = (2.2, 2.3, 2.4, 2.5, 2.6, 2.7, 2.8)
 # Blocks the replayed policy must bring back at the chosen radius.
 STREAM_MIN_IN = 20
@@ -1348,7 +1375,7 @@ def drift_pipeline_phase(card):
     forced path) and both mean errors.  Returns the first verified loop's
     inputs and the K2/K3 launches of verification."""
     import check_accuracy_port as cap
-    from instancefusion_tpu_torch.ops import kernels
+    from instancefusion_tpu_torch.ops import blocks, kernels
 
     cfg = cap.pipeline_config()
     poses, frames = cap.rig_frames(cfg, DRIFT_FRAMES, True, 1.6, 0.02, seed=0)
@@ -1357,8 +1384,10 @@ def drift_pipeline_phase(card):
     bare_launches = launch_counts()
     with LoopRecorder() as rec:
         kernels.reset_launches()
+        blocks.LIST_FILL.reset()
         res, rows, errs, fps = cap.run_pipeline(cfg, frames, poses)
         launches = launch_counts()
+        fill = blocks.LIST_FILL.read()
     s = cap.pipeline_summary(res, rows, errs, poses)
     cadence = len(range(0, DRIFT_FRAMES, cfg.posegraph.keyframe_every))
     forced = s["keyframes"] - cadence
@@ -1372,8 +1401,9 @@ def drift_pipeline_phase(card):
           f"bare engine on the same frames: mean {bare['errs'].mean() * 1e3!r} mm, max "
           f"{bare['errs'].max() * 1e3!r} mm ({bare['fps']!r} frames/s, launches "
           f"{bare_launches}); pipeline {fps!r} frames/s, phase sums (ms) {phases}, "
-          f"launches {launches}; verification made {rec.k2} K2 and {rec.k3} K3 launches "
-          f"[{card}]", flush=True)
+          f"launches {launches}; verification made {rec.k2} K2 and {rec.k3} K3 launches; "
+          f"in-frustum list (most rows of a frame, rows dropped past the list over the "
+          f"frames, list length) {fill} [{card}]", flush=True)
     print(f"drift pipeline: the JAX package on a TPU v5e reported 17.2 mm mean and 6 "
           f"loops on this rig (_check_drift_pipeline.py); on the CPU the same package "
           f"gives the bare engine 79.72 mm and the pipeline 80.30 mm mean, 15 keyframes "
@@ -1394,6 +1424,8 @@ def drift_pipeline_phase(card):
                                     f"expected {count}")
     check(rec.k2 == rec.k3 == 8 * rec.calls, f"drift pipeline: verification launches "
                                              f"{rec.k2}/{rec.k3} for {rec.calls} calls")
+    rec.mean_mm = s["mean_mm"]
+    rec.fill = fill
     return rec
 
 
@@ -1594,7 +1626,7 @@ def paeth_decode_ms(intr) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def choose_stream_radius(cfg, frames, poses, card) -> float:
+def choose_stream_radius(cfg, frames, poses, card, required: bool = True) -> float:
     """The active-window radius of the streamed run, from the block-centre
     distances of the fixture: each frame's measurement band is sampled as
     ``blocks.discover_allocate`` samples it (3 depths, every 4th pixel), and
@@ -1604,7 +1636,9 @@ def choose_stream_radius(cfg, frames, poses, card) -> float:
     The largest radius the replay brings STREAM_MIN_IN blocks back at is
     chosen: blocks leave the window before the turn and come back after
     it, and as few as may are seen again from beyond the radius (then they
-    are allocated afresh while their stored copy waits)."""
+    are allocated afresh while their stored copy waits).  Unless `required`,
+    a fixture where no candidate qualifies gets the candidate that brings
+    the most blocks back."""
     from instancefusion_tpu_torch.geometry.camera import ray_directions
 
     ts = cfg.tsdf
@@ -1653,6 +1687,8 @@ def choose_stream_radius(cfg, frames, poses, card) -> float:
           f"out, the largest in view (m): {[round(x, 3) for x in inview]}; replayed policy "
           f"(stream_in, stream_out, blocks seen again while stored) by radius: {table}; "
           f"chosen radius {radius} m [{card}]", flush=True)
+    if radius is None and not required:
+        radius = max(table, key=lambda r: (table[r][0], -r))
     check(radius is not None, "sequence runner: no candidate radius streams blocks out and in")
     return radius
 
@@ -1861,6 +1897,494 @@ def sequence_runner_phase(card):
         check(len(plys) >= 3, f"sequence runner: only {len(plys)} instance PLYs")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded map, SHARDS ranks on the card.  The functions named
+# rank_* run on every rank of one RankPool (a process each); what a rank
+# keeps between them lives in _RANK.
+# ---------------------------------------------------------------------------
+
+SHARDS = 8
+_RANK: dict = {}
+
+
+def _sha(t) -> str:
+    import hashlib
+
+    return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _collectives(group, frames: int) -> dict:
+    st = group.stats
+    return {"calls": st.calls / frames, "bytes": st.bytes / frames,
+            "ms": st.seconds * 1e3 / frames}
+
+
+def rank_engine(n: int) -> dict:
+    """(a): config4 through ``slam_sharded.step`` over the orbit, WARMUP
+    frames then TIMED; per frame the pose, counts, a digest of the
+    directory and the prediction's coverage; the launches of the run, the
+    ms a frame, the collectives a frame and the peak memory."""
+    from instancefusion_tpu_torch.config import config4_posegraph_sharded
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.engine import slam_sharded
+    from instancefusion_tpu_torch.ops import blocks as blk
+    from instancefusion_tpu_torch.ops import kernels
+    from instancefusion_tpu_torch.parallel import mesh
+
+    g = mesh.current()
+    cfg = config4_posegraph_sharded()
+    poses = synthetic.orbit_trajectory(n, device=g.device)
+    frames = [synthetic.render_frame(poses[i], cfg.intrinsics) for i in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    blk.LIST_FILL.reset()
+    g.timing = True
+    st = slam_sharded.init_state(cfg, g, poses[0])
+    keep = []
+    for i, f in enumerate(frames):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            g.stats.reset()
+            t0 = time.perf_counter()
+        st, info = slam_sharded.step(cfg, g, st, f.depth, f.color)
+        keep.append((st.T_wc, st.volume.n_active.clone(), st.volume.directory.clone(),
+                     st.pred.valid.sum(), info.track_ok))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (n - WARMUP)
+    coll = _collectives(g, n - WARMUP)
+    g.timing = False
+    launches = launch_counts()
+    fill = blk.LIST_FILL.read()
+    _RANK.update(cfg=cfg, state=st)
+    return {
+        "T_wc": [k[0].cpu().numpy() for k in keep],
+        "n_active": [k[1].cpu().numpy() for k in keep],
+        "directory": [_sha(k[2]) for k in keep],
+        "valid": [int(k[3]) for k in keep],
+        "track_ok": [bool(k[4]) for k in keep],
+        "final_directory": (st.volume.directory >= 0).cpu().numpy(),
+        "gt": poses.cpu().numpy(), "ms": ms, "collectives": coll, "launches": launches,
+        "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+        "backend": g.backend, "fill": fill,
+    }
+
+
+def rank_halo() -> dict:
+    """(b): the marched sharded raycast of (a)'s final map at its final
+    pose, and, on rank 0, the one-card marched raycast of the same map
+    gathered, held to tests/test_shard.py's tolerances."""
+    from instancefusion_tpu_torch import convert
+    from instancefusion_tpu_torch.ops import blocks as blk
+    from instancefusion_tpu_torch.parallel import mesh, shard
+
+    g = mesh.current()
+    cfg, st = _RANK["cfg"], _RANK["state"]
+    g.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    maps, halo = shard.raycast(st.volume, st.T_wc, g, cfg.intrinsics, cfg.tsdf, cfg.raycast,
+                               return_halo=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    out = {"halo": [int(x) for x in halo], "ms": ms, "collectives": _collectives(g, 1),
+           "sha": _sha(maps.depth)}
+    arrays = convert.sharded_map_to_global(st.volume, g)
+    if g.rank == 0:
+        one = convert.block_map_from_global(arrays, g.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = blk.raycast(one, st.T_wc, cfg.intrinsics, cfg.tsdf, cfg.raycast)
+        torch.cuda.synchronize()
+        out["one_ms"] = (time.perf_counter() - t0) * 1e3
+        vs, vh = ref.valid, maps.valid
+        both = vs & vh
+        out["kept"] = float(both.sum()) / max(float(vs.sum()), 1.0)
+        out["valid"] = (int(vs.sum()), int(vh.sum()))
+        err = (maps.depth - ref.depth)[both].abs()
+        out["depth_err"] = float(err.max())
+        out["over"] = (int((err > 2e-3).sum()), int(both.sum()))
+        out["normal_cos"] = float(torch.median((maps.normal_w * ref.normal_w).sum(-1)[both]))
+    return out
+
+
+def rank_drift(list_scale: int = 1) -> dict:
+    """(c): the drift rig through ``pipeline.run`` with num_shards SHARDS;
+    then the sharded Schur terms on the final keyframes against the
+    unsharded ``paired_terms``.  `list_scale` multiplies touched_capacity,
+    and so each rank's in-frustum list length (``shard.fused_step_map``'s
+    k_local); it changes nothing else on this path."""
+    import check_accuracy_port as cap
+    from instancefusion_tpu_torch.ops import ba, blocks, kernels
+    from instancefusion_tpu_torch.parallel import mesh, shard
+
+    g = mesh.current()
+    cfg = dataclasses.replace(cap.pipeline_config(), num_shards=g.size)
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, touched_capacity=cfg.tsdf.touched_capacity * list_scale))
+    poses, frames = cap.rig_frames(cfg, DRIFT_FRAMES, True, 1.6, 0.02, seed=0,
+                                   device=g.device)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g.stats.reset()
+    with LoopRecorder() as rec:
+        kernels.reset_launches()
+        blocks.LIST_FILL.reset()
+        res, rows, errs, fps = cap.run_pipeline(cfg, frames, poses)
+        launches = launch_counts()
+        fill = blocks.LIST_FILL.read()
+    s = cap.pipeline_summary(res, rows, errs, poses)
+    bs = res.backend
+    # The terms at the final keyframes moved off the BA's optimum by a fixed
+    # twist (at the optimum the gradient is ~0 and a relative measure of it
+    # is noise).
+    from instancefusion_tpu_torch.geometry.se3 import se3_exp
+
+    nudge = se3_exp(torch.tensor([0.01, -0.01, 0.005, 0.002, -0.003, 0.001],
+                                 device=g.device))
+    kf = bs.kf.poses @ nudge
+
+    def terms(dtype, sharded):
+        lm = bs.lm._replace(za=bs.lm.za.to(dtype), zb=bs.lm.zb.to(dtype),
+                            weight=bs.lm.weight.to(dtype))
+        fn = shard.sharded_paired_terms(g) if sharded else ba.paired_terms
+        S, r, *_, cst = fn(kf.to(dtype), bs.points.to(dtype), lm)
+        return S, r, cst
+
+    def rel(a, b):
+        return tuple(float((x.double() - y.double()).abs().max()
+                           / torch.clamp(y.double().abs().max(), min=1e-30))
+                     for x, y in zip(a, b))
+
+    # The reducer in fp64 (sums in another order only), and the rounding of
+    # each fp32 form against the fp64 terms.
+    t64 = terms(torch.float64, False)
+    ba_rel = rel(terms(torch.float64, True), t64)
+    ba32 = (rel(terms(torch.float32, True), t64), rel(terms(torch.float32, False), t64))
+
+    return {"summary": {k: s[k] for k in ("frames", "keyframes", "loops", "relocalizations",
+                                          "mean_mm", "max_mm", "ate_mm")},
+            "poses_sha": _sha(torch.as_tensor(res.poses)), "finite": bool(np.isfinite(res.poses).all()),
+            "fps": fps, "launches": launches, "verify": (rec.calls, rec.k2, rec.k3),
+            "fill": fill,
+            "ba_rel": ba_rel, "ba32": ba32,
+            "landmarks": int(bs.lm.valid.sum()), "collectives": _collectives(g, DRIFT_FRAMES),
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+
+
+def rank_cli(seq_dir: str, radius: float, tmp: str) -> dict:
+    """(d): ``cli.main run --preset config4 --shards SHARDS`` on the TUM
+    fixture on every rank (the ranks are a group already, as under
+    torchrun): streaming, reshards (each checked to keep the block set and
+    one directory entry per live row), exports from rank 0, a checkpoint at
+    frame SEQ_POSES; the same run again (the spread of two uninterrupted
+    runs on the card); then the run resumed from the first one's
+    checkpoint.  Also each rank's decode ms a frame with every rank
+    decoding at once, and how full its in-frustum lists ran in the first
+    run."""
+    import contextlib
+    import io
+    import os
+
+    from instancefusion_tpu_torch import cli, convert
+    from instancefusion_tpu_torch.config import config4_posegraph_sharded
+    from instancefusion_tpu_torch.datasets import tum
+    from instancefusion_tpu_torch.engine import pipeline
+    from instancefusion_tpu_torch.ops import blocks
+    from instancefusion_tpu_torch.parallel import mesh
+
+    g = mesh.current()
+    seq = tum.TumSequence(seq_dir, config4_posegraph_sharded().intrinsics)
+    g.barrier()
+    t0 = time.perf_counter()
+    for i in range(4):
+        seq.decode(i)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / 4
+    reshards = []
+    orig = pipeline._Engine.reshard
+
+    def checked(self, state, skew):
+        before = (state.volume.directory >= 0).clone()
+        out, moved = orig(self, state, skew)
+        after = out.volume.directory >= 0
+        reshards.append((moved, bool(torch.equal(before, after)),
+                         int(out.volume.n_active.sum()) == int(after.sum()),
+                         out.volume.cuts.tolist()))
+        return out, moved
+
+    paths = {k: os.path.join(tmp, k)
+             for k in ("a.txt", "b.txt", "c.txt", "mesh.ply", "m.jsonl", "ck", "ck_b")}
+    base = ["run", "--preset", "config4", "--dataset", seq_dir, "--frames", str(2 * SEQ_POSES),
+            "--shards", str(g.size), "--loops", "--quiet", "--stream-every", str(STREAM_EVERY),
+            "--stream-radius", str(radius), "--reshard-every", str(STREAM_EVERY),
+            "--checkpoint-every", str(SEQ_POSES)]
+    out = {"decode_ms": decode_ms}
+    restored = []
+    orig_restore = pipeline.ckpt.restore
+
+    def checked_restore(path, example, cfg, step=None, group=None):
+        """The restore, held bit for bit to the files this rank reads."""
+        out, at = orig_restore(path, example, cfg, step, group)
+        saved = torch.load(os.path.join(path, f"step_{at}.pt"), weights_only=True)
+        saved.update(torch.load(os.path.join(path, f"step_{at}.rank{g.rank}.pt"),
+                                weights_only=True))
+        got = convert.flatten(out)
+        restored.append((at, got.keys() == saved.keys() and all(
+            torch.equal(v.cpu(), saved[k]) if isinstance(v, torch.Tensor) else v == saved[k]
+            for k, v in got.items())))
+        return out, at
+
+    pipeline._Engine.reshard = checked
+    pipeline.ckpt.restore = checked_restore
+    try:
+        for name, extra in (("a", ["--checkpoint-dir", paths["ck"], "--export-traj",
+                                   paths["a.txt"], "--export-mesh", paths["mesh.ply"],
+                                   "--metrics-out", paths["m.jsonl"]]),
+                            ("b", ["--checkpoint-dir", paths["ck_b"], "--export-traj",
+                                   paths["b.txt"]]),
+                            ("c", ["--checkpoint-dir", paths["ck"], "--export-traj",
+                                   paths["c.txt"], "--resume"])):
+            blocks.LIST_FILL.reset()
+            buf = io.StringIO()
+            with RunRecorder() as runs, contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                t0 = time.perf_counter()
+                rc = cli.main(base + extra)
+                torch.cuda.synchronize()
+            out[name] = {"rc": rc, "wall": time.perf_counter() - t0,
+                         "poses": runs.results[0].poses, "fill": blocks.LIST_FILL.read()}
+            if g.rank == 0:
+                out[name]["summary"] = json.loads(buf.getvalue().strip().splitlines()[-1])["summary"]
+            if name == "a":
+                # Resume from the checkpoint at SEQ_POSES, not the last one.
+                if g.rank == 0:
+                    for f in os.listdir(paths["ck"]):
+                        if f.startswith(f"step_{2 * SEQ_POSES}."):
+                            os.remove(os.path.join(paths["ck"], f))
+                g.barrier()
+    finally:
+        pipeline._Engine.reshard = orig
+        pipeline.ckpt.restore = orig_restore
+    out["reshards"] = reshards
+    out["restored"] = restored
+    if g.rank == 0:
+        rows = [json.loads(ln) for ln in open(paths["m.jsonl"])]
+        out["rows"] = [{k: r.get(k) for k in ("frame", "track_ok", "stream_in", "stream_out",
+                                              "stored_blocks", "reshard_migrated")}
+                       for r in rows]
+        out["traj"] = tuple(open(paths[k]).read().splitlines()
+                            for k in ("a.txt", "b.txt", "c.txt"))
+        out["mesh_bytes"] = os.path.getsize(paths["mesh.ply"])
+    return out
+
+
+def unsharded_run(cfg, frames, poses) -> dict:
+    """The one-card engine over the same frames: poses, ms a frame over the
+    timed frames, the final allocation mask and coverage, peak memory."""
+    from instancefusion_tpu_torch.engine import slam
+    from instancefusion_tpu_torch.ops import blocks
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    blocks.LIST_FILL.reset()
+    st = slam.init_state(cfg, poses[0])
+    est = []
+    for i, f in enumerate(frames):
+        if i == WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        st, _ = slam.step(cfg, st, f.depth, f.color)
+        est.append(st.T_wc)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(frames) - WARMUP)
+    return {"T_wc": torch.stack(est).cpu().numpy(), "ms": ms,
+            "directory": (st.volume.directory >= 0).cpu().numpy(),
+            "valid": int(st.pred.valid.sum()), "fill": blocks.LIST_FILL.read(),
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+
+
+def sharded_phase(card, drift_mean_mm: float, drift_fill: dict) -> dict:
+    """Phase 15: the sharded map as SHARDS ranks on the card (one launch:
+    the ranks start and load the kernels once).  Returns rank 0's launch
+    counts of (a) for the kernel records."""
+    import os
+    import tempfile
+
+    from instancefusion_tpu_torch.config import config4_posegraph_sharded
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.ops import kernels
+    from instancefusion_tpu_torch.parallel import mesh
+    from instancefusion_tpu_torch.utils.ate import ate_rmse
+
+    cfg = config4_posegraph_sharded()
+    voxel = cfg.tsdf.voxel_size
+    n = WARMUP + TIMED
+    poses = synthetic.orbit_trajectory(n)
+    frames = [synthetic.render_frame(poses[i], cfg.intrinsics) for i in range(n)]
+    kernels.reset_launches()
+    one = unsharded_run(dataclasses.replace(cfg, num_shards=1), frames, poses)
+    del frames
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir = os.path.join(tmp, "seq")
+        seq_poses, seq_frames = write_tum_fixture(seq_dir, cfg)
+        radius = choose_stream_radius(cfg, seq_frames, seq_poses, card, required=False)
+        del seq_frames
+        t0 = time.perf_counter()
+        with mesh.RankPool(SHARDS) as pool:
+            start_s = time.perf_counter() - t0
+            a = pool.run(rank_engine, n)
+            b = pool.run(rank_halo)
+            c = pool.run(rank_drift)
+            # The same rig with each rank's in-frustum list as long as the
+            # one card's (k_local 2048): what the per-rank cap does to it.
+            cw = pool.run(rank_drift, SHARDS)
+            d = pool.run(rank_cli, seq_dir, radius, tmp)
+    r0 = a[0]
+
+    # (a) config4 at full width.
+    ate = ate_rmse(np.stack(r0["T_wc"]), r0["gt"])
+    ate_one = ate_rmse(one["T_wc"], r0["gt"])
+    pose_diff = float(np.abs(np.stack(r0["T_wc"]) - one["T_wc"]).max())
+    final_diff = float(np.abs(r0["T_wc"][-1] - one["T_wc"][-1]).max())
+    alloc_diff = int((one["directory"] != r0["final_directory"]).sum())
+    n_alloc = int(one["directory"].sum())
+    counts = r0["n_active"][-1]
+    peaks = [r["peak_gib"] for r in a]
+    print(f"sharded (a): config4 on {SHARDS} ranks ({r0['backend']} over the one card; ranks up "
+          f"in {start_s!r} s): {n} frames, {r0['ms']!r} ms a frame (rank 0; ranks "
+          f"{[round(r['ms'], 3) for r in a]}) against the one-card engine's {one['ms']!r} ms; "
+          f"collectives a frame (rank 0) {r0['collectives']}; peak memory per rank above what "
+          f"the process held before the run (GiB) {peaks} against one card "
+          f"{one['peak_gib']!r}; ATE {ate * 1e3!r} mm (one card "
+          f"{ate_one * 1e3!r} mm); pose difference to the one-card run: final {final_diff!r} "
+          f"m, largest over the frames {pose_diff!r} m; allocation sets differ in "
+          f"{alloc_diff} of {n_alloc} blocks; coverage {r0['valid'][-1]} vs {one['valid']} "
+          f"pixels; rows per shard {counts.tolist()}; in-frustum lists per rank (most rows of "
+          f"a frame, rows dropped past the list, list length) "
+          f"{[tuple(r['fill'].values()) for r in a]}, one card {tuple(one['fill'].values())}; "
+          f"launches per rank "
+          f"{[r['launches'] for r in a]} [{card}]", flush=True)
+    check(all(r0["track_ok"]), f"sharded (a): tracking failed on {r0['track_ok']}")
+    check(ate < voxel, f"sharded (a): ATE {ate} >= voxel {voxel}")
+    check(final_diff < 0.5 * voxel, f"sharded (a): final pose {final_diff} m from the one-card run")
+    check(alloc_diff <= 0.02 * n_alloc + 2, f"sharded (a): allocation sets differ in {alloc_diff}")
+    check(abs(r0["valid"][-1] - one["valid"]) < 0.1 * max(r0["valid"][-1], one["valid"]),
+          f"sharded (a): coverage {r0['valid'][-1]} vs {one['valid']}")
+    check((counts > 0).sum() >= 2, f"sharded (a): rows on {(counts > 0).sum()} shards")
+    for r in a[1:]:
+        same = (all(np.array_equal(x, y) for x, y in zip(r["T_wc"], r0["T_wc"]))
+                and r["directory"] == r0["directory"]
+                and all(np.array_equal(x, y) for x, y in zip(r["n_active"], r0["n_active"])))
+        check(same, "sharded (a): a rank's pose, directory or n_active left rank 0's")
+    per = {"K1": 1, "K2": 9, "K3": 9, "K4": 1, "K5": 1}
+    for r in a:
+        for k, v in r["launches"].items():
+            want = per.get(k, 0) * n
+            if k in ("K4color", "K5color"):
+                want = n
+            check(v == want, f"sharded (a): {k} launched {v} times on a rank, expected {want}")
+
+    # (b) the halo raycast.
+    h0 = b[0]
+    print(f"sharded (b): halo raycast of (a)'s final map: halo rows received per rank (from the "
+          f"left, from the right) {[r['halo'] for r in b]}; {h0['ms']!r} ms (rank 0; "
+          f"collectives {h0['collectives']}) against the one-card marched raycast's "
+          f"{h0['one_ms']!r} ms; valid pixels one card / sharded {h0['valid']}, one-card hits "
+          f"kept {h0['kept']!r}, largest depth difference {h0['depth_err']!r} m (common hits "
+          f"beyond 2 mm: {h0['over']}), median normal "
+          f"cosine {h0['normal_cos']!r} [{card}]", flush=True)
+    check(all(r["sha"] == h0["sha"] for r in b), "sharded (b): ranks composited other maps")
+    # tests/test_shard.py's bounds: > 97% of the one-card hits kept, depth
+    # within 2 mm on every common hit and median normal cosine above 0.999.
+    check(h0["kept"] > 0.97 and h0["over"][0] == 0 and h0["normal_cos"] > 0.999,
+          f"sharded (b): halo raycast against the one-card raycast {h0}")
+    check(sum(x for r in b for x in r["halo"]) > 0, "sharded (b): no halo row crossed a seam")
+
+    # (c) the drift rig's pipeline.
+    c0 = c[0]
+    s = c0["summary"]
+    print(f"sharded (c): drift rig pipeline on {SHARDS} ranks: {s}, {c0['fps']!r} frames/s, "
+          f"verifications (calls, K2, K3) {c0['verify']}, collectives a frame (rank 0) "
+          f"{c0['collectives']}, peak memory per rank above the frames (GiB) "
+          f"{[r['peak_gib'] for r in c]}; "
+          f"sharded Schur terms against the unsharded paired_terms on {c0['landmarks']} "
+          f"landmarks (final keyframes nudged off the optimum), in fp64: relative "
+          f"differences (S, rhs, cost) {c0['ba_rel']}; in fp32 against the fp64 terms, "
+          f"sharded {c0['ba32'][0]}, unsharded {c0['ba32'][1]}; mean error "
+          f"{s['mean_mm']!r} mm against the one-card pipeline's {drift_mean_mm!r} mm (phase 12 "
+          f"of this run); in-frustum lists per rank (most rows of a frame, rows dropped past "
+          f"the list over the frames, list length) {[tuple(r['fill'].values()) for r in c]}, "
+          f"one card {tuple(drift_fill.values())} [{card}]", flush=True)
+    w0 = cw[0]
+    print(f"sharded (c'): the same rig with each rank's list as long as the one card's: "
+          f"{w0['summary']}, {w0['fps']!r} frames/s; in-frustum lists per rank "
+          f"{[tuple(r['fill'].values()) for r in cw]}; mean error {w0['summary']['mean_mm']!r} "
+          f"mm against {s['mean_mm']!r} (lists of {c0['fill']['length']}) and the one card's "
+          f"{drift_mean_mm!r} [{card}]", flush=True)
+    check(c0["finite"] and s["frames"] == DRIFT_FRAMES, "sharded (c): a frame has no finite pose")
+    check(s["loops"] >= 1, "sharded (c): no verified loop")
+    check(all(r["poses_sha"] == c0["poses_sha"] for r in c), "sharded (c): ranks' poses differ")
+    check(c0["landmarks"] > 0 and max(c0["ba_rel"]) <= 1e-5,
+          f"sharded (c): BA terms {c0['ba_rel']} on {c0['landmarks']} landmarks")
+    check(w0["finite"] and all(r["poses_sha"] == w0["poses_sha"] for r in cw),
+          "sharded (c'): a pose is not finite or the ranks' poses differ")
+
+    # (d) the sequence runner.
+    d0 = d[0]
+    sa, sc = d0["a"]["summary"], d0["c"]["summary"]
+    rows = d0["rows"]
+    s_in = sum(r["stream_in"] or 0 for r in rows)
+    s_out = sum(r["stream_out"] or 0 for r in rows)
+    moved = [x for r in d for x in r["reshards"] if x[0] > 0]
+    ta, tb, tc = d0["traj"]
+
+    def second_half(lines):
+        return np.array([[float(x) for x in ln.split()[1:]] for ln in lines[-SEQ_POSES:]])
+
+    pa, pb, pc = second_half(ta), second_half(tb), second_half(tc)
+    spread = float(np.abs(pa - pb).max()) if len(tb) == len(ta) else float("inf")
+    resume_diff = float(np.abs(pa - pc).max()) if pa.shape == pc.shape else float("inf")
+    resume_bound = 3.0 * max(spread, RESUME_SPREAD_M)
+    ate_c = ate_rmse(d0["c"]["poses"], seq_poses[SEQ_POSES:].cpu().numpy())
+    print(f"sharded (d): cli run --preset config4 --shards {SHARDS} on the TUM fixture: "
+          f"{sa['frames']} frames, {sa['fps']!r} frames/s with decode ({d0['a']['wall']!r} s), "
+          f"ATE {sa['ate_rmse_m'] * 1e3!r} mm, {sa['keyframes']} keyframes, "
+          f"{sa['loop_closures']} loops; stream_in {s_in}, stream_out {s_out} (radius {radius} "
+          f"m); reshards (rows moved, block set kept, one entry per live row, cuts) on rank 0 "
+          f"{d0['reshards']}; mesh {d0['mesh_bytes']} bytes; resumed at frame {SEQ_POSES}: "
+          f"{sc['frames']} frames, the restored state equal to the checkpoint bit for bit on "
+          f"every rank: {[r['restored'] for r in d]}, ATE {ate_c * 1e3!r} mm, "
+          f"largest difference of the trajectory's entries (frames {SEQ_POSES} on) from the "
+          f"uninterrupted run's {resume_diff!r} (bound {resume_bound!r}), two uninterrupted "
+          f"runs {spread!r} apart; in-frustum lists of the first run per rank "
+          f"{[tuple(r['a']['fill'].values()) for r in d]}; decode "
+          f"{[round(r['decode_ms'], 3) for r in d]} ms a frame per rank with every rank "
+          f"decoding at once [{card}]", flush=True)
+    check(all(r[k]["rc"] == 0 for r in d for k in "abc"), "sharded (d): cli exit code")
+    check(all(r["track_ok"] for r in rows), "sharded (d): tracking failed")
+    check(sa["ate_rmse_m"] < voxel, f"sharded (d): ATE {sa['ate_rmse_m']} >= {voxel}")
+    check(s_in > 0 and s_out > 0, f"sharded (d): stream_in {s_in}, stream_out {s_out}")
+    check(len(moved) > 0, "sharded (d): no reshard migrated rows")
+    check(all(x[1] and x[2] for r in d for x in r["reshards"]),
+          "sharded (d): a reshard lost or duplicated a block")
+    # K5 adds into its planes with float atomics, so two runs on the card
+    # part in the last bits and drift apart over frames (the CPU test,
+    # tests/test_torch_pipeline_sharded.py, holds a resumed run equal to the
+    # uninterrupted one exactly).  Here: the restore is exact on every rank,
+    # and the resumed run stays within three times the larger of the two
+    # uninterrupted runs' spread and RESUME_SPREAD_M of the first.
+    check(len(tc) == SEQ_POSES and all(r["restored"] == [(SEQ_POSES, True)] for r in d),
+          f"sharded (d): the restore left the checkpoint: {[r['restored'] for r in d]}")
+    check(resume_diff <= resume_bound,
+          f"sharded (d): resumed trajectory {resume_diff} from the uninterrupted run's, "
+          f"bound {resume_bound}")
+    check(ate_c < voxel, f"sharded (d): resumed ATE {ate_c}")
+    check(d0["mesh_bytes"] > 1000, "sharded (d): no mesh exported")
+    return r0["launches"]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -1923,6 +2447,11 @@ def main() -> None:
     instance_pipeline_phase(icfg, frames, poses, card)
     recs += loop_kernel_records(rec)
     sequence_runner_phase(card)
+    sharded = sharded_phase(card, rec.mean_mm, rec.fill)
+    ids = {name: k for k, name in NAMES.items()}
+    for r in recs:
+        # Launches a rank made on phase 15's sharded main path.
+        r["sharded_launches_per_rank"] = sharded.get(ids[r["name"]], 0)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

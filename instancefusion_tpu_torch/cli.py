@@ -9,8 +9,15 @@ ScanNet scene) through ``engine/pipeline.run``, streams per-frame JSONL
 metrics, exports the trajectory, the mesh and per-instance models, and
 prints a final ``{"summary": ...}`` line with the reference's keys.  It runs
 on the card unless ``--device`` says otherwise, and never falls back to
-the CPU on its own.  ``--shards`` above 1 raises ``NotImplementedError``,
-as the engine does.
+the CPU on its own.
+
+``--shards S`` above 1 (config4 and config5 default to 8) shards the map
+over S ranks: the command starts them itself (``parallel.mesh.launch``),
+or, started by ``torchrun --nproc-per-node S``, joins the group torchrun
+describes.  The backend is NCCL when every rank has a card of its own and
+gloo otherwise (ranks that share a card, or ``--device cpu``).  Every rank
+reads and decodes the sequence itself; rank 0 alone writes the metrics,
+the exports and the summary line.
 """
 
 from __future__ import annotations
@@ -74,7 +81,7 @@ def _add_run_args(p: argparse.ArgumentParser) -> None:
                    help="local-loop evidence poll cadence in frames")
     p.add_argument("--shards", type=int, default=0,
                    help="override the preset's map shard count (0 = preset "
-                        "default; above 1 is not ported and raises)")
+                        "default); above 1 runs that many ranks")
     p.add_argument("--reshard-every", type=int, default=0,
                    help="occupancy-rebalance poll cadence for the sharded map")
     p.add_argument("--reshard-skew", type=float, default=1.5,
@@ -109,6 +116,10 @@ def _config(args):
     if args.sentinel:
         cfg = dataclasses.replace(cfg, consistency_check=True,
                                   consistency_thresh=args.sentinel_thresh)
+    if args.instances and not cfg.use_instances:
+        cfg = dataclasses.replace(cfg, map_kind="blocks", use_instances=True)
+    if args.local_loops:
+        cfg = dataclasses.replace(cfg, map_kind="blocks", track_stamps=True)
     return cfg
 
 
@@ -172,11 +183,35 @@ def _profiler(out_dir: str | None, dev):
     return torch.profiler.profile(activities=acts)
 
 
-def _export(args, cfg, res) -> None:
+def _gathered(args, cfg, state, group):
+    """The final map (and votes) of a sharded run as a one-device BlockMap
+    on rank 0's device, for the exports; None on the other ranks.  A
+    collective: every rank calls it."""
+    import torch
+
+    from instancefusion_tpu_torch import convert
+    from instancefusion_tpu_torch.ops.labels import LabelVotes
+
+    arrays = convert.sharded_map_to_global(state.volume, group)
+    votes = None
+    if state.votes is not None:
+        lab = convert.gather_rows(state.votes.label, group)
+        cnt = convert.gather_rows(state.votes.count, group)
+        if group.rank == 0:
+            votes = LabelVotes(label=torch.as_tensor(lab, device=group.device),
+                               count=torch.as_tensor(cnt, device=group.device))
+    if group.rank != 0:
+        return None
+    return state._replace(volume=convert.block_map_from_global(arrays, group.device),
+                          votes=votes)
+
+
+def _export(args, cfg, res, state=None) -> None:
     from instancefusion_tpu_torch.utils import meshing
     from instancefusion_tpu_torch.utils.ate import rotmat_to_quat
 
-    volume = res.state.volume
+    state = res.state if state is None else state
+    volume = state.volume
     if args.export_mesh:
         if volume.color.numel() > 0:
             verts, tris, cols = meshing.extract_mesh(volume, cfg.tsdf, with_color=True)
@@ -185,11 +220,11 @@ def _export(args, cfg, res) -> None:
             verts, tris = meshing.extract_mesh(volume, cfg.tsdf)
             meshing.save_ply(args.export_mesh, verts, tris)
     if args.export_instances:
-        if res.state.votes is None:
+        if state.votes is None:
             print("--export-instances needs --instances", file=sys.stderr)
         else:
             os.makedirs(args.export_instances, exist_ok=True)
-            parts = meshing.extract_instance_meshes(volume, res.state.votes, cfg.tsdf)
+            parts = meshing.extract_instance_meshes(volume, state.votes, cfg.tsdf)
             for gid, (v, t) in parts.items():
                 meshing.save_ply(
                     os.path.join(args.export_instances, f"instance_{gid}.ply"), v, t)
@@ -206,23 +241,40 @@ def _export(args, cfg, res) -> None:
 
 
 def cmd_run(args: argparse.Namespace) -> int:
+    from instancefusion_tpu_torch.engine import pipeline
+    from instancefusion_tpu_torch.parallel import mesh
+
+    cfg = _config(args)
+    shards = cfg.num_shards
+    if shards > 1:
+        pipeline.check_sharded(cfg, args.local_loops)
+    if shards > 1 and mesh.current() is None:
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            mesh.initialize_multihost(args.device)
+        else:
+            return mesh.launch(_run, shards, args, device=args.device)
+    return _run(args)
+
+
+def _run(args: argparse.Namespace) -> int:
+    """One rank's run (the only one without sharding)."""
     import numpy as np
 
     from instancefusion_tpu_torch import device as _device
     from instancefusion_tpu_torch.engine import pipeline
+    from instancefusion_tpu_torch.parallel import mesh
     from instancefusion_tpu_torch.utils.ate import ate_rmse
     from instancefusion_tpu_torch.utils.metrics import MetricsWriter
 
-    dev = _device.resolve(args.device)
     cfg = _config(args)
+    group = mesh.group_for(cfg.num_shards, args.device) if cfg.num_shards > 1 else None
+    lead = group is None or group.rank == 0
+    dev = group.device if group is not None else _device.resolve(args.device)
     frames, gt, T0, cfg = _sequence(args, cfg, dev)
-    if args.instances and not cfg.use_instances:
-        cfg = dataclasses.replace(cfg, map_kind="blocks", use_instances=True)
-    if args.local_loops:
-        cfg = dataclasses.replace(cfg, map_kind="blocks", track_stamps=True)
     segment_fn = _segment_fn(args, cfg, dev)
 
-    metrics = MetricsWriter(args.metrics_out, echo=not args.quiet)
+    metrics = (MetricsWriter(args.metrics_out, echo=not args.quiet) if lead
+               else None)
     prof = _profiler(args.profile, dev)
     with prof:
         res = pipeline.run(
@@ -245,11 +297,17 @@ def cmd_run(args: argparse.Namespace) -> int:
             reshard_skew=args.reshard_skew,
             device=dev,
         )
-    metrics.close()
-    if args.profile:
+    if metrics is not None:
+        metrics.close()
+    if args.profile and lead:
         os.makedirs(args.profile, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
-    _export(args, cfg, res)
+    state = None
+    if group is not None and (args.export_mesh or args.export_instances):
+        state = _gathered(args, cfg, res.state, group)
+    if not lead:
+        return 0
+    _export(args, cfg, res, state)
 
     summary = {
         "frames": int(res.poses.shape[0]),

@@ -13,6 +13,10 @@ graph, the fern coder and the landmark bank) is keyed the same way, e.g.
 ``unflatten`` give any nest of these states those names
 (``utils/checkpoint.py`` stores by them).  The segmentation head's weights
 come across from the reference's flax checkpoint by ``seghead_from_flax``.
+A rank's share of the sharded map comes from the reference's global arrays
+by ``sharded_map_from_global``; ``sharded_map_to_global`` gathers them
+back on rank 0, and ``block_map_from_global`` makes them a one-device
+``BlockMap``.
 """
 
 from __future__ import annotations
@@ -189,3 +193,59 @@ def seghead_from_flax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unexpected flax parameter {key}")
     return out
+
+
+# The sharded map (``parallel/shard.py``): the reference holds it as global
+# arrays with the payload rows of shard s at [s Cl, (s+1) Cl); a rank of the
+# port holds its own rows and the replicated rest.
+SHARDED_ROW_FIELDS = ("block_coords", "sdf", "weight", "color")
+
+
+def sharded_map_from_global(arrays: dict, rank: int, num_shards: int, device=None):
+    """Rank `rank`'s ``ShardedBlockMap`` from the reference's global arrays
+    (``directory``, ``block_coords``, ``n_active``, ``overflow``, ``sdf``,
+    ``weight``, ``color``, ``cuts``; numpy or tensors)."""
+    from instancefusion_tpu_torch.parallel.shard import ShardedBlockMap
+
+    dev = _device.resolve(device)
+    return ShardedBlockMap(**{
+        name: sharded_rows_from_global(arrays[name], rank, num_shards, dev)
+        if name in SHARDED_ROW_FIELDS else torch.as_tensor(np.array(arrays[name]), device=dev)
+        for name in ShardedBlockMap._fields})
+
+
+def sharded_rows_from_global(x, rank: int, num_shards: int, device=None) -> torch.Tensor:
+    """Rank `rank`'s rows of a row-sharded global array (e.g. vote planes)."""
+    x = torch.as_tensor(np.array(x), device=_device.resolve(device))
+    cl = x.shape[0] // num_shards
+    return x[rank * cl:(rank + 1) * cl].clone()
+
+
+def gather_rows(x: torch.Tensor, group):
+    """Every rank's rows of `x` concatenated in rank order on rank 0 (numpy),
+    None on the other ranks."""
+    g = group.all_gather(x)
+    return g.reshape((-1,) + tuple(x.shape[1:])).cpu().numpy() if group.rank == 0 else None
+
+
+def sharded_map_to_global(bm, group) -> dict | None:
+    """The sharded map as the reference's global arrays, on rank 0 (numpy;
+    None on the other ranks)."""
+    out = {}
+    for name, x in bm._asdict().items():
+        out[name] = gather_rows(x, group) if name in SHARDED_ROW_FIELDS else x.cpu().numpy()
+    return out if group.rank == 0 else None
+
+
+def block_map_from_global(arrays: dict, device=None) -> BlockMap:
+    """A one-device ``BlockMap`` of a gathered sharded map: its rows in
+    global slot order, so the directory's global slots address them."""
+    dev = _device.resolve(device)
+
+    def get(name):
+        return torch.as_tensor(np.array(arrays[name]), device=dev)
+
+    return BlockMap(directory=get("directory"), block_coords=get("block_coords"),
+                    n_active=get("n_active").sum().to(torch.int32),
+                    overflow=get("overflow").sum().to(torch.int32), sdf=get("sdf"),
+                    weight=get("weight"), color=get("color"))

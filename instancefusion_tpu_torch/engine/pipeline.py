@@ -1,5 +1,5 @@
 """Host-side orchestration: the full SLAM pipeline over a sequence (port of
-``engine/pipeline.py``, single device).
+``engine/pipeline.py``).
 
 Per frame it runs the engine step and, at the configured cadences,
 relocalizes after lost tracking, fuses a segmentation dispatched one frame
@@ -20,8 +20,19 @@ With ``stream_every > 0`` on the block map, a ``BlockStreamer``
 (``engine/streaming.py``) keeps only the blocks within ``stream_radius`` of
 the camera on the device: it ticks every ``stream_every`` frames and
 before the re-render of a relocalization, and its host store is saved
-beside each checkpoint and restored on resume.  Sharded maps
-(``num_shards > 1``) are a later slice of the port: they raise.
+beside each checkpoint and restored on resume.
+
+With ``num_shards > 1`` the map is sharded over a group of ranks
+(``parallel/``): ``run`` is called on every rank of the group with the same
+arguments, the engine is ``engine/slam_sharded.py``, loop-closure BA sums
+its landmark slices across the ranks (``shard.sharded_paired_terms``),
+re-renders use the halo raycast, hygiene and streaming run their sharded
+forms, and ``reshard_every`` polls the per-shard occupancy and, when it
+is skewed by more than ``reshard_skew``, moves the slab cuts to balance
+it and migrates the rows.  Every rank runs the whole host orchestration:
+its inputs are replicated, so every rank takes the same decisions.  Only
+rank 0 writes the metrics (the caller passes ``metrics`` there alone), the
+replicated part of a checkpoint and the streamer's store.
 """
 
 from __future__ import annotations
@@ -39,10 +50,11 @@ from instancefusion_tpu_torch.config import EngineConfig
 from instancefusion_tpu_torch.engine import instances as inst
 from instancefusion_tpu_torch.engine import localloop as ll
 from instancefusion_tpu_torch.engine import posegraph as pg
-from instancefusion_tpu_torch.engine import slam
-from instancefusion_tpu_torch.engine.streaming import BlockStreamer
+from instancefusion_tpu_torch.engine import slam, slam_sharded
+from instancefusion_tpu_torch.engine.streaming import BlockStreamer, ShardedBlockStreamer
 from instancefusion_tpu_torch.geometry.se3 import se3_inverse
 from instancefusion_tpu_torch.ops import blocks, preprocess
+from instancefusion_tpu_torch.parallel import mesh, shard
 from instancefusion_tpu_torch.utils import checkpoint as ckpt
 from instancefusion_tpu_torch.utils.metrics import MetricsWriter, Timer, sync_fetch
 
@@ -57,15 +69,16 @@ class PipelineResult:
     backend: Any
 
 
-def _optimize_after_loop(backend, cfg: EngineConfig, kf_a, kf_b, T_rel):
+def _optimize_after_loop(backend, cfg: EngineConfig, kf_a, kf_b, T_rel, ba_terms_fn=None):
     """Graph correction after a verified loop (kf_a, kf_b, T_rel): with
     ``use_landmark_ba`` (the default) sample the pair's landmarks into the
-    bank and run the joint Schur solve, else pose-graph GN alone."""
+    bank and run the joint Schur solve (its terms from `ba_terms_fn`, the
+    sharded reducer on a group), else pose-graph GN alone."""
     pgc = cfg.posegraph
     if pgc.use_landmark_ba:
         pts, obs = pg.build_loop_landmarks(backend, kf_a, kf_b, T_rel, cfg.intrinsics, cfg)
         backend = pg.add_loop_landmarks(backend, pts, obs)
-        return pg.optimize_landmark(backend, pgc)
+        return pg.optimize_landmark(backend, pgc, ba_terms_fn)
     return pg.optimize(backend, pgc)
 
 
@@ -82,9 +95,74 @@ def _anchor_correction(backend, kf_cur, T_before, T_wm):
     return corr @ T_wm
 
 
-def _check_supported(cfg: EngineConfig) -> None:
-    if cfg.num_shards > 1:
-        raise NotImplementedError("sharded maps are not ported yet")
+def check_sharded(cfg: EngineConfig, local_loops: bool = False) -> None:
+    """The reference's refusals of a sharded run."""
+    if cfg.map_kind != "blocks":
+        raise ValueError("num_shards > 1 requires map_kind='blocks'")
+    if local_loops or cfg.track_stamps:
+        raise ValueError("active/inactive local loops are a single-shard feature")
+    if cfg.posegraph.max_landmarks % cfg.num_shards:
+        raise ValueError("max_landmarks must divide num_shards")
+
+
+class _Engine:
+    """The engine calls of a run: the one-device engine, or the sharded
+    engine on `group`."""
+
+    def __init__(self, cfg: EngineConfig, group=None):
+        self.cfg, self.group = cfg, group
+
+    def step(self, state, depth, color):
+        if self.group is None:
+            return slam.step(self.cfg, state, depth, color)
+        return slam_sharded.step(self.cfg, self.group, state, depth, color)
+
+    def step_gt(self, state, depth, color, T):
+        if self.group is None:
+            return slam.step_gt(self.cfg, state, depth, color, T)
+        return slam_sharded.step_gt(self.cfg, self.group, state, depth, color, T)
+
+    def fuse_segmentation(self, state, seg, depth, T):
+        if self.group is None:
+            return slam.fuse_segmentation(self.cfg, state, seg, depth, T)
+        return slam_sharded.fuse_segmentation(self.cfg, self.group, state, seg, depth, T)
+
+    def rerender(self, volume, T):
+        cfg = self.cfg
+        if self.group is None:
+            return slam._map_ops(cfg).raycast(volume, T, cfg.intrinsics, cfg.tsdf,
+                                              cfg.raycast, with_color=cfg.use_color)
+        return slam_sharded.rerender(cfg, self.group, volume, T)
+
+    def clean(self, state):
+        cfg = self.cfg
+        if self.group is None:
+            out = blocks.clean(state.volume, cfg.tsdf, min_weight=1.0, votes=state.votes,
+                               stamp=state.stamp)
+            state = state._replace(volume=out[0], votes=out[1])
+            return state._replace(stamp=out[2]) if state.stamp is not None else state
+        volume, votes = shard.clean(state.volume, self.group, cfg.tsdf, min_weight=1.0,
+                                    votes=state.votes)
+        return state._replace(volume=volume, votes=votes)
+
+    def reshard(self, state, skew: float) -> tuple:
+        """Rebalance the slab cuts when the per-shard occupancy is skewed
+        beyond `skew` (max over mean) and migrate the rows; returns (state,
+        rows migrated)."""
+        counts = state.volume.n_active.cpu().numpy()
+        if counts.max() <= skew * max(counts.mean(), 1.0):
+            return state, 0
+        cfg = self.cfg
+        vol = state.volume._replace(
+            cuts=shard.balanced_cuts(state.volume.directory, cfg.tsdf, cfg.num_shards))
+        votes, moved = state.votes, 0
+        for _ in range(8):
+            vol, votes, migrated, leftover = shard.reshard(vol, self.group, cfg.tsdf,
+                                                           votes=votes)
+            moved += int(migrated.sum())
+            if int(leftover.sum()) == 0:
+                break
+        return state._replace(volume=vol, votes=votes), moved
 
 
 def _stream(streamer: BlockStreamer, state, T_wc):
@@ -124,16 +202,22 @@ def run(
     -> Segmentation | None`` supplies instance masks at the
     ``cfg.instances.seg_every`` cadence; its result is fused one frame
     later against its own frame's depth and pose, so the head's device
-    work overlaps the next step.  ``reshard_every`` and ``reshard_skew``
-    belong to the sharded path, which raises.
+    work overlaps the next step.  With ``cfg.num_shards > 1`` it runs on
+    every rank of the current shard group, on the group's device;
+    ``reshard_every`` and ``reshard_skew`` apply to that path alone.
     """
-    _check_supported(cfg)
-    dev = _device.resolve(device)
-    state = slam.init_state(cfg, T_init_wc, dev)
-
-    def rerender(volume, T):
-        return slam._map_ops(cfg).raycast(volume, T, cfg.intrinsics, cfg.tsdf, cfg.raycast,
-                                          with_color=cfg.use_color)
+    group = ba_terms_fn = None
+    if cfg.num_shards > 1:
+        check_sharded(cfg, local_loops)
+        group = mesh.group_for(cfg.num_shards)
+        dev = group.device
+        state = slam_sharded.init_state(cfg, group, T_init_wc)
+        ba_terms_fn = shard.sharded_paired_terms(group)
+    else:
+        dev = _device.resolve(device)
+        state = slam.init_state(cfg, T_init_wc, dev)
+    engine = _Engine(cfg, group)
+    rerender = engine.rerender
 
     backend = pg.allocate(cfg, device=dev)
     # Map anchor: world-from-map.  Loop corrections move only this one
@@ -143,14 +227,21 @@ def run(
     if resume and checkpoint_dir:
         try:
             (state, backend, T_wm), start_frame = ckpt.restore(
-                checkpoint_dir, (state, backend, T_wm), cfg)
+                checkpoint_dir, (state, backend, T_wm), cfg, group=group)
         except FileNotFoundError:
             pass
 
     streamer = None
     if stream_every and cfg.map_kind == "blocks":
-        streamer = BlockStreamer(cfg.tsdf, radius=stream_radius, with_color=cfg.use_color,
-                                 with_votes=cfg.use_instances, with_stamps=cfg.track_stamps)
+        if group is not None:
+            streamer = ShardedBlockStreamer(cfg.tsdf, group, radius=stream_radius,
+                                            with_color=cfg.use_color,
+                                            with_votes=cfg.use_instances)
+        else:
+            streamer = BlockStreamer(cfg.tsdf, radius=stream_radius,
+                                     with_color=cfg.use_color,
+                                     with_votes=cfg.use_instances,
+                                     with_stamps=cfg.track_stamps)
         if resume and checkpoint_dir and start_frame:
             # Evicted blocks live only in the host store: restore it with
             # the device state or they are gone.
@@ -218,16 +309,16 @@ def run(
         # frame's own depth and pose.
         if pending_seg is not None:
             with timer.phase("seg_fuse"):
-                state = slam.fuse_segmentation(cfg, state, *pending_seg)
+                state = engine.fuse_segmentation(state, *pending_seg)
                 pending_seg = None
         with timer.phase("step"):
             if gt_odometry is not None:
                 # Tracking bypass: fuse at the dataset pose.
                 T_gt = torch.as_tensor(gt_odometry[i], dtype=torch.float32, device=dev)
-                state, info = slam.step_gt(cfg, state, frame.depth, frame.color,
-                                           se3_inverse(T_wm) @ T_gt)
+                state, info = engine.step_gt(state, frame.depth, frame.color,
+                                             se3_inverse(T_wm) @ T_gt)
             else:
-                state, info = slam.step(cfg, state, frame.depth, frame.color)
+                state, info = engine.step(state, frame.depth, frame.color)
         if relocalized:
             # The first solve after a re-seat is itself a correction:
             # extrapolated as velocity it would walk a static view away.
@@ -282,7 +373,7 @@ def run(
                             backend = pg.add_loop_edge(backend, anchor, kf_cur, T_rel)
                             T_before = pg._pick(backend.kf.poses, kf_cur)
                             backend, _ = _optimize_after_loop(backend, cfg, anchor, kf_cur,
-                                                              T_rel)
+                                                              T_rel, ba_terms_fn)
                             T_wm = _anchor_correction(backend, kf_cur, T_before, T_wm)
                         # Re-seat the engine on the old geometry.
                         state = state._replace(
@@ -326,7 +417,8 @@ def run(
                         kf_cur = backend.kf.count - 1
                         backend = pg.add_loop_edge(backend, cand, kf_cur, T_rel)
                         T_before = pg._pick(backend.kf.poses, kf_cur)
-                        backend, _ = _optimize_after_loop(backend, cfg, cand, kf_cur, T_rel)
+                        backend, _ = _optimize_after_loop(backend, cfg, cand, kf_cur, T_rel,
+                                                          ba_terms_fn)
                         # Re-anchor the map; the engine state is untouched.
                         T_wm = _anchor_correction(backend, kf_cur, T_before, T_wm)
                         n_loops += 1
@@ -337,17 +429,22 @@ def run(
         # Map hygiene: confidence culling with slot compaction, instance
         # retirement.
         if clean_every and cfg.map_kind == "blocks" and (i + 1) % clean_every == 0:
-            out = blocks.clean(state.volume, cfg.tsdf, min_weight=1.0, votes=state.votes,
-                               stamp=state.stamp)
-            state = state._replace(volume=out[0], votes=out[1])
-            if state.stamp is not None:
-                state = state._replace(stamp=out[2])
+            state = engine.clean(state)
         if retire_every and cfg.use_instances and (i + 1) % retire_every == 0:
             state = state._replace(table=inst.retire_stale(state.table, cfg.instances))
         stream_stats = {}
         if streamer is not None and (i + 1) % stream_every == 0:
             with timer.phase("stream"):
                 state, stream_stats = _stream(streamer, state, state.T_wc)
+
+        # Occupancy rebalance of the slab cuts; also right after a loop
+        # closure or a relocalization (the camera fuses next where the
+        # trajectory was re-anchored).
+        reshard_migrated = 0
+        if group is not None and reshard_every and (
+                (i + 1) % reshard_every == 0 or closed or relocalized):
+            with timer.phase("reshard"):
+                state, reshard_migrated = engine.reshard(state, reshard_skew)
 
         est.append(T_wm @ state.T_wc)
         if metrics is not None:
@@ -367,7 +464,7 @@ def run(
                 "relocalized": relocalized,
                 "seg_dispatched": seg_dispatched,
                 "lost_frames": int(state.lost_frames),
-                "reshard_migrated": 0,
+                "reshard_migrated": reshard_migrated,
                 **drift,
                 **stream_stats,
                 **{f"t_{k}_ms": round(v, 2) for k, v in timer.times_ms.items()},
@@ -376,13 +473,13 @@ def run(
 
         if checkpoint_dir and (i + 1) % checkpoint_every == 0:
             sync_fetch((state, backend, T_wm))
-            ckpt.save(checkpoint_dir, (state, backend, T_wm), cfg, i + 1)
+            ckpt.save(checkpoint_dir, (state, backend, T_wm), cfg, i + 1, group=group)
             if streamer is not None:
                 streamer.save(os.path.join(checkpoint_dir, f"step_{i + 1}.streamer.npz"))
 
     # Flush the last in-flight segmentation so its votes are not lost.
     if pending_seg is not None:
-        state = slam.fuse_segmentation(cfg, state, *pending_seg)
+        state = engine.fuse_segmentation(state, *pending_seg)
     sync_fetch(state.T_wc)
     elapsed = time.perf_counter() - t0
     return PipelineResult(

@@ -21,8 +21,9 @@ merges and association, label votes with K7).  With ``rgb_weight > 0`` and
 color's intensity; ``track_stamps`` (block map only) keeps per-slot
 observation stamps for ``engine/localloop.py``; ``consistency_check`` runs
 the drift sentinel, a coarse frame-to-frame ICP beside the frame-to-model
-one.  Sharded maps are a later slice: configurations that ask for them
-raise.
+one.  This engine keeps the whole map on one device whatever
+``num_shards`` says, as the reference's does; the sharded map runs in
+``engine/slam_sharded.py``.
 
 The state is a ``NamedTuple`` of tensors on one device, as in the
 reference.  ``step`` keeps everything on the device (no host read per
@@ -97,18 +98,31 @@ class StepInfo(NamedTuple):
     drift_alarm: torch.Tensor | None = None
 
 
-def _check_supported(cfg: EngineConfig) -> None:
-    if cfg.num_shards != 1:
-        raise NotImplementedError("sharded maps are not ported yet")
-
-
 def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
     """Empty map and invalid prediction at pose `T_init_wc` (default identity).
 
     Runs on ``cuda`` unless ``device`` says otherwise; raises with no card.
     """
-    _check_supported(cfg)
     dev = _device.resolve(device)
+    votes = stamp = None
+    if cfg.use_instances:
+        if cfg.map_kind != "blocks":
+            raise ValueError("instance fusion requires map_kind='blocks'")
+        votes = labels.allocate(cfg.tsdf, dev)
+    if cfg.track_stamps:
+        if cfg.map_kind != "blocks":
+            raise ValueError("track_stamps requires map_kind='blocks'")
+        stamp = torch.zeros((cfg.tsdf.table_capacity, 2), dtype=torch.int32, device=dev)
+    volume = _map_ops(cfg).allocate(cfg.tsdf, dev, with_color=cfg.use_color)
+    return empty_state(cfg, T_init_wc, volume, votes, stamp)
+
+
+def empty_state(cfg: EngineConfig, T_init_wc, volume, votes=None, stamp=None) -> SlamState:
+    """A state around the given empty map (and vote planes and stamps, when
+    the configuration keeps them) on the map's device: the pose
+    `T_init_wc` (default identity), an invalid prediction, the instance
+    table and the sentinel's state where the configuration asks for them."""
+    dev = volume.sdf.device
     h, w = cfg.intrinsics.height, cfg.intrinsics.width
     f32 = dict(dtype=torch.float32, device=dev)
     T0 = (torch.eye(4, **f32) if T_init_wc is None
@@ -120,17 +134,8 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
         color=torch.zeros((h, w, 3), **f32),
         valid=torch.zeros((h, w), dtype=torch.bool, device=dev),
     )
-    votes = table = None
-    if cfg.use_instances:
-        if cfg.map_kind != "blocks":
-            raise ValueError("instance fusion requires map_kind='blocks'")
-        votes = labels.allocate(cfg.tsdf, dev)
-        table = inst.allocate(cfg.instances, dev)
-    stamp = prev_coarse = drift_ewma = None
-    if cfg.track_stamps:
-        if cfg.map_kind != "blocks":
-            raise ValueError("track_stamps requires map_kind='blocks'")
-        stamp = torch.zeros((cfg.tsdf.table_capacity, 2), dtype=torch.int32, device=dev)
+    table = inst.allocate(cfg.instances, dev) if cfg.use_instances else None
+    prev_coarse = drift_ewma = None
     if cfg.consistency_check:
         s = 1 << max(cfg.icp.levels - 2, 0)
         hc, wc = h // s, w // s
@@ -139,7 +144,7 @@ def init_state(cfg: EngineConfig, T_init_wc=None, device=None) -> SlamState:
         drift_ewma = torch.zeros((3,), **f32)
     return SlamState(
         T_wc=T0,
-        volume=_map_ops(cfg).allocate(cfg.tsdf, dev, with_color=cfg.use_color),
+        volume=volume,
         pred=pred,
         pred_T_wc=T0.clone(),
         frame_idx=torch.zeros((), dtype=torch.int32, device=dev),
@@ -318,7 +323,13 @@ def _consistency_update(cfg: EngineConfig, state: SlamState, pyr, result, T_new)
 
 def step(cfg: EngineConfig, state: SlamState, depth, color):
     """Track -> fuse -> predict for one RGB-D frame; returns (state, info)."""
-    _check_supported(cfg)
+    return track_and_fuse(cfg, state, depth, color, _fuse_and_predict)
+
+
+def track_and_fuse(cfg: EngineConfig, state: SlamState, depth, color, fuse):
+    """`step` with the map update `fuse(cfg, state, d0, color, T_new,
+    fuse_ok) -> (volume, pred, stamp)`: this engine's, or the sharded
+    engine's (``engine/slam_sharded.py``)."""
     _device.resolve(state.T_wc.device)
     depth, color = _inputs(state, depth, color)
     intr = cfg.intrinsics
@@ -340,7 +351,7 @@ def step(cfg: EngineConfig, state: SlamState, depth, color):
     T_new = torch.where(result.valid, result.T_wc, state.T_wc)
     d0 = pyr[0]["depth"]
     fused = torch.where(fuse_ok, tsdf_integrate_count(d0), torch.zeros((), device=d0.device))
-    volume, pred, stamp = _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok)
+    volume, pred, stamp = fuse(cfg, state, d0, color, T_new, fuse_ok)
     prev_coarse, drift_ewma, drift_mag, drift_alarm = _consistency_update(
         cfg, state, pyr, result, T_new)
     new_state = state._replace(
@@ -367,14 +378,18 @@ def step(cfg: EngineConfig, state: SlamState, depth, color):
 
 def step_gt(cfg: EngineConfig, state: SlamState, depth, color, T_gt_wc):
     """Fuse -> predict at a given pose (tracking bypassed)."""
-    _check_supported(cfg)
+    return fuse_at(cfg, state, depth, color, T_gt_wc, _fuse_and_predict)
+
+
+def fuse_at(cfg: EngineConfig, state: SlamState, depth, color, T_gt_wc, fuse):
+    """`step_gt` with the map update `fuse` (as in `track_and_fuse`)."""
     _device.resolve(state.T_wc.device)
     depth, color = _inputs(state, depth, color)
     T_new = torch.as_tensor(T_gt_wc, dtype=torch.float32, device=depth.device)
     pyr = preprocess.build_frame_pyramid(depth, cfg.intrinsics, cfg.preprocess, 1)
     d0 = pyr[0]["depth"]
     fuse_ok = torch.ones((), dtype=torch.bool, device=d0.device)
-    volume, pred, stamp = _fuse_and_predict(cfg, state, d0, color, T_new, fuse_ok)
+    volume, pred, stamp = fuse(cfg, state, d0, color, T_new, fuse_ok)
     new_state = state._replace(
         T_wc=T_new, volume=volume, pred=pred, pred_T_wc=T_new,
         frame_idx=state.frame_idx + 1,

@@ -12,6 +12,8 @@ returns, so the table capacity bounds the local scene, not the whole one.
 - Host side (this module): a store from flat block id to numpy rows, the
   policy (radius, caps), and ``save``/``load`` in the reference's npz
   format, so a store written by either package loads in the other.
+  ``ShardedBlockStreamer`` keeps one such store, replicated, for the
+  sharded map.
 
 Transfers: an eviction is one device call, one copy of the bounded
 ``evict_cap`` rows into a pinned host buffer and one wait; an admission
@@ -133,17 +135,8 @@ class BlockStreamer:
             col = batch[:, a:b]
             return col.view(torch.int32) if self._zero[key].dtype == np.int32 else col
 
-        out = blk.admit_rows(
-            volume, self.cfg, field("coords"), field("sdf"), field("weight"),
-            field("color") if self.with_color else None, batch[:, -1] > 0.5, votes,
-            field("label") if self.with_votes else None,
-            field("count") if self.with_votes else None,
-            stamp, field("stamp") if (stamp is not None and self.with_stamps) else None,
-        )
-        if stamp is not None:
-            volume, votes, fits, stamp = out
-        else:
-            volume, votes, fits = out
+        volume, votes, fits, stamp = self._admit_call(volume, votes, field,
+                                                      batch[:, -1] > 0.5, stamp)
         # Blocks that did not fit (capacity) go back to the store.
         fits_np = fits.cpu().numpy()[: len(rows)]
         for i, r in enumerate(rows):
@@ -156,16 +149,11 @@ class BlockStreamer:
         (volume, votes, stamp, blocks evicted)."""
         dev = volume.sdf.device
         center = torch.tensor(np.asarray(center_w, np.float32), device=dev)
-        out = blk.partition_window(volume, self.cfg, center, self.radius, self.evict_cap,
-                                   votes, stamp)
-        if stamp is not None:
-            volume, votes_new, ev, stamp = out
-        else:
-            volume, votes_new, ev = out
+        volume, votes_new, ev, stamp = self._evict_call(volume, votes, center, stamp)
         cols = [ev[key].view(torch.float32) if ev[key].dtype == torch.int32 else ev[key]
                 for key in self._zero if key in ev]
-        packed = torch.cat(cols + [ev["valid"].float()[:, None]], dim=1)
-        host = self._host_buffer(self.evict_cap, dev)
+        packed = self._gather(torch.cat(cols + [ev["valid"].float()[:, None]], dim=1))
+        host = self._host_buffer(packed.shape[0], dev)
         if packed.shape != host.shape:
             raise ValueError(f"evicted rows {tuple(packed.shape)} do not match the "
                              f"store's fields {tuple(host.shape)}")
@@ -182,6 +170,27 @@ class BlockStreamer:
             self.store[(cx * nb + cy) * nb + cz] = row
             n_out += 1
         return volume, (votes_new if votes is not None else votes), stamp, n_out
+
+    def _admit_call(self, volume, votes, field, valid, stamp):
+        """The device half of an admission: (volume, votes, fits, stamp)."""
+        out = blk.admit_rows(
+            volume, self.cfg, field("coords"), field("sdf"), field("weight"),
+            field("color") if self.with_color else None, valid, votes,
+            field("label") if self.with_votes else None,
+            field("count") if self.with_votes else None,
+            stamp, field("stamp") if (stamp is not None and self.with_stamps) else None,
+        )
+        return out if stamp is not None else (*out, None)
+
+    def _evict_call(self, volume, votes, center, stamp):
+        """The device half of an eviction: (volume, votes, evicted, stamp)."""
+        out = blk.partition_window(volume, self.cfg, center, self.radius, self.evict_cap,
+                                   votes, stamp)
+        return out if stamp is not None else (*out, None)
+
+    def _gather(self, packed: torch.Tensor) -> torch.Tensor:
+        """The evicted rows that enter the store (all of them, here)."""
+        return packed
 
     def save(self, path: str) -> None:
         """Persist the host store beside a device checkpoint: evicted blocks
@@ -215,3 +224,50 @@ class BlockStreamer:
             "stream_out": n_out,
             "stored_blocks": len(self.store),
         }
+
+
+class ShardedBlockStreamer(BlockStreamer):
+    """Block streaming for the sharded map (``parallel/shard.py``).
+
+    The same policy, store format and ``tick`` as ``BlockStreamer``; the
+    device halves change.  Eviction runs ``shard.partition_window`` on
+    every rank (each evicts its own cold rows) and one ``all_gather`` of
+    the packed eviction buffers brings every evicted row to every rank.
+    Admission hands the same rows to ``shard.admit_rows`` on every rank
+    (each appends the rows of its own slab) and reads back the replicated
+    admitted mask.  So the store is replicated: every rank holds every
+    stored block, keyed by block id, and a reshard, which moves rows
+    between ranks but never in or out of the store, cannot lose or
+    duplicate a stored block.  Rank 0 saves it.  Stamps are a
+    single-shard feature.
+    """
+
+    def __init__(self, cfg: TsdfConfig, group, radius: float, evict_cap: int = 1024,
+                 admit_cap: int = 1024, with_color: bool = True, with_votes: bool = False):
+        super().__init__(cfg, radius, evict_cap=evict_cap, admit_cap=admit_cap,
+                         with_color=with_color, with_votes=with_votes, with_stamps=False)
+        self.group = group
+
+    def _admit_call(self, volume, votes, field, valid, stamp):
+        from instancefusion_tpu_torch.parallel import shard
+
+        volume, votes, fits = shard.admit_rows(
+            volume, self.group, self.cfg, field("coords"), field("sdf"), field("weight"),
+            field("color") if self.with_color else None, valid, votes,
+            field("label") if self.with_votes else None,
+            field("count") if self.with_votes else None)
+        return volume, votes, fits, stamp
+
+    def _evict_call(self, volume, votes, center, stamp):
+        from instancefusion_tpu_torch.parallel import shard
+
+        volume, votes, ev = shard.partition_window(volume, self.group, self.cfg, center,
+                                                   self.radius, self.evict_cap, votes)
+        return volume, votes, ev, stamp
+
+    def _gather(self, packed: torch.Tensor) -> torch.Tensor:
+        return self.group.all_gather(packed).reshape(-1, packed.shape[1])
+
+    def save(self, path: str) -> None:
+        if self.group.rank == 0:
+            super().save(path)

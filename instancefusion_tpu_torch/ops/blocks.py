@@ -104,26 +104,17 @@ def _set_with_spill(dst: torch.Tensor, idx: torch.Tensor, values) -> torch.Tenso
     return ext[:-1]
 
 
-def discover_allocate(
-    bm: BlockMap,
-    depth: torch.Tensor,
-    T_wc: torch.Tensor,
-    intr: Intrinsics,
-    cfg: TsdfConfig,
-    samples: int = 3,
-    stride: int = 4,
-    alloc_cap: int = 4096,
-) -> BlockMap:
-    """Allocate this frame's new band blocks by list, not by directory scan.
+def band_candidates(depth: torch.Tensor, T_wc: torch.Tensor, intr: Intrinsics,
+                    cfg: TsdfConfig, samples: int = 3, stride: int = 4,
+                    alloc_cap: int = 4096) -> torch.Tensor:
+    """This frame's band blocks as a list: i32[min(alloc_cap, n)] distinct
+    flat block ids in descending order, -1 padded.
 
     Samples the measurement band of every `stride`-th pixel at `samples`
-    depths, sorts and dedups the block ids, keeps the largest `alloc_cap`
-    distinct ones (``topk``, descending like ``lax.top_k``), drops those
-    already allocated and gives the rest consecutive slots.
+    depths, sorts and dedups the block ids and keeps the largest
+    `alloc_cap` distinct ones (``topk``, descending like ``lax.top_k``).
     """
     nb = num_blocks_per_axis(cfg)
-    nb3 = nb * nb * nb
-    c = cfg.table_capacity
     rays = decimate(ray_directions(intr, depth.device), stride)
     depth = decimate(depth, stride)
     R, o = T_wc[:3, :3], T_wc[:3, 3]
@@ -148,6 +139,28 @@ def discover_allocate(
     first = (srt >= 0) & (srt != prev)
     alloc_cap = min(alloc_cap, srt.shape[0])
     top, _ = torch.topk(torch.where(first, srt, torch.full_like(srt, -1)), alloc_cap)
+    return top
+
+
+def discover_allocate(
+    bm: BlockMap,
+    depth: torch.Tensor,
+    T_wc: torch.Tensor,
+    intr: Intrinsics,
+    cfg: TsdfConfig,
+    samples: int = 3,
+    stride: int = 4,
+    alloc_cap: int = 4096,
+) -> BlockMap:
+    """Allocate this frame's new band blocks by list, not by directory scan.
+
+    Takes the frame's ``band_candidates``, drops those already allocated
+    and gives the rest consecutive slots.
+    """
+    nb = num_blocks_per_axis(cfg)
+    nb3 = nb * nb * nb
+    c = cfg.table_capacity
+    top = band_candidates(depth, T_wc, intr, cfg, samples, stride, alloc_cap)
     have = bm.directory.reshape(-1)[torch.clamp(top, min=0).long()] >= 0
     uniq = (top >= 0) & ~have
     order = torch.cumsum(uniq.to(torch.int32), 0, dtype=torch.int32) - 1
@@ -333,10 +346,45 @@ def frustum_mask(bm: BlockMap, T_wc, intr: Intrinsics, cfg: TsdfConfig,
     )
 
 
+class ListFill:
+    """How full the in-frustum slot lists ran, kept on the device until
+    read: the most in-frustum rows of one list and the rows dropped past a
+    list's length, summed over lists (``compact_mask_indices`` keeps the
+    first k).  ``LIST_FILL`` notes every list of the splat path, on one
+    card (``frustum_slots``) and on each rank (``shard.fused_step_map``)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.largest = self.dropped = None
+        self.length = 0
+
+    def note(self, mask: torch.Tensor, k: int) -> None:
+        n = mask.sum()
+        over = torch.clamp(n - k, min=0)
+        first = self.largest is None
+        self.largest = n if first else torch.maximum(self.largest, n)
+        self.dropped = over if first else self.dropped + over
+        self.length = k
+
+    def read(self) -> dict:
+        """{"largest", "dropped", "length"} as ints (one sync)."""
+        if self.largest is None:
+            return {"largest": 0, "dropped": 0, "length": self.length}
+        return {"largest": int(self.largest), "dropped": int(self.dropped),
+                "length": self.length}
+
+
+LIST_FILL = ListFill()
+
+
 def frustum_slots(bm: BlockMap, T_wc, intr: Intrinsics, cfg: TsdfConfig,
                   near: float, far: float, k: int):
     """Compacted list of allocated in-frustum payload slots: (i32[k], bool[k])."""
-    return compact_mask_indices(frustum_mask(bm, T_wc, intr, cfg, near, far), k)
+    mask = frustum_mask(bm, T_wc, intr, cfg, near, far)
+    LIST_FILL.note(mask, k)
+    return compact_mask_indices(mask, k)
 
 
 def integrate_slots(
@@ -397,6 +445,12 @@ def raycast_splat(
         T_wc, intr, tsdf_cfg, with_color=with_color,
         depth_prior=depth_prior, rmax=rmax,
     )
+    return maps_from_splat(imgs, T_wc, intr)
+
+
+def maps_from_splat(imgs, T_wc: torch.Tensor, intr: Intrinsics) -> RaycastMaps:
+    """Vertex and normal maps of a splat prediction (``SplatImages``) by
+    image math: hit points along the pixel rays, image-space normals."""
     rays_c = ray_directions(intr, T_wc.device)
     dirs_z = (rays_c.reshape(-1, 3) @ T_wc[:3, :3].T).reshape(rays_c.shape)
     p_hit = T_wc[:3, 3] + imgs.depth[..., None] * dirs_z

@@ -8,11 +8,19 @@ caller that wants every kernel ready up front.  Libraries are named by a
 digest of their source, the shared headers and the flags, so an edited
 source or header is rebuilt and a built one is reused.  They go to
 ``instancefusion_tpu_torch/_build/`` (listed in ``.gitignore``).
+
+Several processes may build at once (the ranks of a shard group start
+together): ``build`` holds an exclusive ``flock`` on ``_build/build.lock``
+while it checks and compiles, so one process compiles and the others wait
+and then load its libraries.  The lock goes with the process that holds it,
+so a build cut off midway leaves none behind.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -52,17 +60,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
+@contextlib.contextmanager
+def _build_lock():
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(names=SOURCES) -> dict[str, Path]:
-    """Compile the named sources that are not built yet, all in parallel.
+    """Compile the named sources that are not built yet, all in parallel,
+    under the build lock.
 
     ``nvcc``'s report (``-Xptxas -v``: registers, shared memory, spills) is
     kept beside each library as ``<name>.log``.  Raises if any build fails.
     """
+    if all(library_path(n).exists() for n in names):
+        return {name: library_path(name) for name in names}
+    with _build_lock():
+        return _build_missing(names)
+
+
+def _build_missing(names) -> dict[str, Path]:
     missing = [n for n in names if not library_path(n).exists()]
     if not missing:
         return {name: library_path(name) for name in names}
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in missing:
         target = library_path(name)

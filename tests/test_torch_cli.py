@@ -108,7 +108,10 @@ def test_cli_runs_tum_sequence(stream, tmp_path, capsys):
 
 
 def test_shards_raise():
-    with pytest.raises(NotImplementedError):
+    """``--shards`` above 1 runs the sharded map (tests/test_torch_pipeline_sharded.py);
+    on the small dense map it raises the reference's ValueError before any
+    rank starts."""
+    with pytest.raises(ValueError, match="map_kind='blocks'"):
         cli.main(["run", "--small", "--frames", "2", "--device", "cpu", "--quiet",
                   "--shards", "2"])
 

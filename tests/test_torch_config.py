@@ -98,16 +98,23 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 def test_unported_options_raise():
-    """Sharded maps are not ported: they raise.  The dense map and the
+    """The sharded engine (``engine/slam_sharded.py``) refuses what the
+    reference refuses (a dense map, stamps) and a group of another size
+    than ``num_shards``.  The dense map and the
     block map without splat prediction start (test_torch_slam_dense.py);
     instances and stamps on the dense map raise the reference's ValueError.
     The photometric term, the stamps and the sentinel run
     (test_torch_slam.py)."""
+    from instancefusion_tpu_torch.engine import slam_sharded
+    from instancefusion_tpu_torch.parallel.mesh import ShardGroup
+
     cfg = to_port(jcfg.config2_tum_fr3_long_office())
-    for change in (dict(num_shards=2), dict(num_shards=4, track_stamps=True),
-                   dict(map_kind="dense", num_shards=2)):
-        with pytest.raises(NotImplementedError):
-            slam.init_state(dataclasses.replace(cfg, **change), device="cpu")
+    group = ShardGroup(0, 2, torch.device("cpu"))
+    for change, why in ((dict(num_shards=4), "group of 2"),
+                        (dict(num_shards=2, track_stamps=True), "single-shard"),
+                        (dict(map_kind="dense", num_shards=2), "map_kind='blocks'")):
+        with pytest.raises(ValueError, match=why):
+            slam_sharded.init_state(dataclasses.replace(cfg, **change), group)
     for change in (dict(use_instances=True), dict(track_stamps=True)):
         with pytest.raises(ValueError, match="map_kind='blocks'"):
             slam.init_state(dataclasses.replace(to_port(jcfg.config1_tum_fr1_desk()),

@@ -98,7 +98,12 @@ def test_checkpoint_config_mismatch_rejected(tmp_path):
 
 def test_unported_paths_raise():
     cfg = to_port(CFG)
-    with pytest.raises(NotImplementedError):
+    # The sharded map runs on every rank of a shard group
+    # (tests/test_torch_pipeline_sharded.py): on this dense map it raises the
+    # reference's ValueError, and a block map outside any group raises.
+    with pytest.raises(ValueError, match="map_kind='blocks'"):
         ppipe.run(dataclasses.replace(cfg, num_shards=2), [], device="cpu")
+    with pytest.raises(RuntimeError, match="shard group"):
+        ppipe.run(dataclasses.replace(cfg, num_shards=2, map_kind="blocks"), [], device="cpu")
     # Streaming is ported (tests/test_torch_streaming.py): it runs.
     assert ppipe.run(cfg, [], stream_every=3, device="cpu").poses.shape == (0, 4, 4)
