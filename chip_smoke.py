@@ -54,7 +54,8 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    launch; K4 on a depth-only and a color frame and K7, each bit-equal to
    its plain version on every voxel of the valid rows with every other row
    untouched, each call one device launch and no other device op; K5 with
-   color and its route counts, K6, and K8 on the march path's last state
+   color, its screen-tile walk and a bit-identical second call, K6, and K8
+   (timed with the L2 flushed before each call) on the march path's last state
    and the next frame's association, with and without color, among them;
    no kernel may launch while a plain version is timed);
 10. the packaged segmentation head at 640x480 on the card, held against the
@@ -124,7 +125,39 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    and one directory entry per live row), exports from rank 0, a checkpoint
    at frame 20 and a resume from it.  It prints ms a frame against the
    one-card run, the collectives' calls, bytes and ms a frame, peak memory
-   per rank, the backend, the halo rows per seam and each rank's decode ms.
+   per rank, the backend, the halo rows per seam and each rank's decode ms;
+   the runs of (d) must repeat bit for bit and the resumed run must equal
+   the uninterrupted one bit for bit;
+16. whether the card repeats itself, the segmentation head's training and
+   its parallel forms.  (a) Each op twice on the same inputs, compared bit
+   for bit (``repeat_phase``): K5 with and without color on the main
+   path's list, ``optimize_hybrid_paired`` on phase 12's first loop
+   problem, ``engine/instances``' merges and ``associate`` and the whole
+   ``fuse_segmentation`` on phase 4's state, and ``cli.main run --preset
+   config2`` on phase 14's fixture; all must agree.  (b)
+   ``models/train_seghead.train`` on the card, 300 steps at the packaged
+   head's width on the reference trainer's data: the loss must fall below
+   half its first value, the first 3 steps must equal the CPU's from the
+   same weights within 1e-4, a second run must repeat the first bit for
+   bit, the checkpoint must reload to the fp16-rounded head, the packaged
+   weights must stay unchanged; steps/s at each size, peak memory and the
+   held-out accuracy are printed.  (c) ``models/parallel``'s DP and TP over
+   8 ranks (phase 15's pool) with the packaged head at 640x480 on 8 of
+   phase 10's stable frames, against the main process's one-rank
+   ``segment``: the head's outputs on every rank bit-identical to the main
+   process's, DP equal, TP's mask_id and classes equal and its scores
+   within 1e-4; ms a call and the collectives' calls, bytes and ms.  (d) The record of (a) beside the
+   same measurement on the parent tree (REPEAT_BEFORE);
+17. config5 (1024^3 of 2 cm voxels, table 131072 = 8 x 16384 rows,
+   instances), on phase 15's pool: ``cli.main run --preset config5 --shards
+   8 --instances --seg-head trained`` on phase 14's fixture with loops and
+   streaming: every frame tracked, ATE below the voxel, every rank's poses,
+   segmentations and instance table equal to rank 0's, K7 launched on
+   every rank, trajectory, mesh and
+   instance models exported; peak memory per rank printed.
+
+``python3 chip_smoke.py --repeat`` runs the card, the build and phase 16
+(a) alone on inputs it makes itself, and prints what differs.
 
 Any failed check exits non-zero.  The second-to-last line is the card's
 name and power limit, the line before it a JSON record per kernel (with
@@ -166,10 +199,10 @@ VOTE_FLOPS_PER_VOXEL = 40
 # Per-voxel fp32 operations of K8's running average: weights 4, sdf blend 5,
 # clamp 1, color denominator 3, three color blends of 4.
 TSDF_UPDATE_FLOPS_PER_VOXEL = 25
-# Bytes per voxel of a valid row that K8 must move: sdf and weight read and
-# written (16), psi and w_obs read (8), three color floats read and written
-# and three observations read (36).
-TSDF_UPDATE_BYTES_PER_VOXEL = 60
+# Bytes K8 must move: psi and w_obs read for every listed voxel (8); where
+# w_obs > 0, sdf and weight read and written (16) and, with color, three
+# color floats read and written and three observations read (36).
+TSDF_UPDATE_OBS_BYTES, TSDF_UPDATE_PAYLOAD_BYTES, TSDF_UPDATE_COLOR_BYTES = 8, 16, 36
 WARMUP, TIMED, CHUNK = 3, 30, 6
 PER_FRAME = {"K1": 1, "K2": 9, "K3": 9, "K4": 1, "K5": 1}
 # The photometric path: 9 association rounds with the rgb planes and 3
@@ -190,10 +223,6 @@ ACCURACY_FRAMES, DRIFT_FRAMES, INSTANCE_PIPELINE_FRAMES = 40, 120, 12
 # The sequence runner's fixture: the orbit's poses out, then back; the
 # streaming cadence and the candidate radii (m) of its active window.
 SEQ_POSES, STREAM_EVERY = 20, 4
-# The largest difference between two card runs of phase 15 (d) seen before
-# the spread was measured in the same call: a resumed run's trajectory
-# against the uninterrupted one's, 1.57e-3 m (PERF.md, the sharded map).
-RESUME_SPREAD_M = 1.6e-3
 STREAM_RADII = (2.2, 2.3, 2.4, 2.5, 2.6, 2.7, 2.8)
 # Blocks the replayed policy must bring back at the chosen radius.
 STREAM_MIN_IN = 20
@@ -248,8 +277,9 @@ DEVICE_KERNELS = {"K1": ("preprocess_kernel",), "K2": ("associate_kernel",),
                   "K2rgb": ("associate_kernel",), "K3": ("gn_kernel",),
                   "K3rgb": ("gn_kernel",),
                   "K4": ("integrate_kernel",), "K4color": ("integrate_kernel",),
-                  "K5": ("splat_kernel",),
-                  "K5color": ("splat_kernel",), "K6": ("ne_reduce_kernel", "ne_finish_kernel"),
+                  "K5": ("splat_votes_kernel", "splat_tiles_kernel"),
+                  "K5color": ("splat_votes_kernel", "splat_tiles_kernel"),
+                  "K6": ("ne_reduce_kernel", "ne_finish_kernel"),
                   "K7": ("label_vote_kernel",), "K8": ("tsdf_update_kernel",),
                   "K2loop": ("associate_kernel",), "K3loop": ("gn_kernel",)}
 NAMES = {"K1": "fused_preprocess", "K2": "associate_gather",
@@ -279,17 +309,36 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean stream time of one call, by CUDA events over `reps` calls."""
+def time_ms(fn, reps: int, between=None) -> float:
+    """Mean stream time of one call, by CUDA events over `reps` calls; with
+    `between` (e.g. an L2 flush), that runs before each call, outside the
+    events around it."""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
+    if between is None:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    pairs = []
     for _ in range(reps):
+        between()
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
         fn()
-    end.record()
+        pair[1].record()
+        pairs.append(pair)
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def l2_flush():
+    """A function that evicts the card's 50 MB L2: it writes 256 MB."""
+    buf = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    return lambda: buf.fill_(1.0)
 
 
 def bench_config():
@@ -563,7 +612,7 @@ def grouping_stable(outs, k, seg) -> bool:
 def head_phase(cfg, state, frames, next_frame, card):
     """The packaged head on the card against the same head on the CPU, then
     one ``step_seg`` on a head segmentation of `next_frame`; returns the
-    head's ms per call.
+    head's ms per call and the frames whose grouping is stable.
 
     The card's outputs must be within 1e-3 of the CPU's, and the grouping of
     the same outputs must agree on both, on every frame compared.  The card's
@@ -628,7 +677,7 @@ def head_phase(cfg, state, frames, next_frame, card):
     check(bool(torch.isfinite(state.table.score).all()), "non-finite instance scores")
     print(f"step_seg on a head segmentation: tracked, {int(seg.valid.sum())} masks, "
           f"{int(state.table.active.sum())} active rows", flush=True)
-    return head_ms
+    return head_ms, stable
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -652,7 +701,7 @@ def n_distinct(pix, mask) -> int:
     return int(torch.unique(pix[mask]).numel())
 
 
-def kernel_times(k, fn, reps: int):
+def kernel_times(k, fn, reps: int, between=None):
     """A kernel's call time (``time_ms``: stream time per call, host gaps
     included), its device time per call (``torch.profiler``'s device time of
     the kernel's ``__global__`` functions, DEVICE_KERNELS, over `reps` more
@@ -662,10 +711,12 @@ def kernel_times(k, fn, reps: int):
     a call."""
     from torch.profiler import ProfilerActivity, profile
 
-    ms = time_ms(fn, reps)
+    ms = time_ms(fn, reps, between)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
     pattern = re.compile(r"\b(" + "|".join(DEVICE_KERNELS[k]) + r")\b")
@@ -746,11 +797,18 @@ def splat_record(k, cfg, slots, valid, coords, maps, T, d0, with_color, launches
     acc = torch.zeros((nch, hw), device=planes_k.device)
     del taps
     n_valid = int(valid.sum())
-    routes = kray.splat_routes(slots, valid, coords, T, intr, cfg.tsdf, with_color, rmax)
-    print(f"{k} routes of the {n_valid} valid listed blocks: {routes['tile']} on the "
-          f"shared-memory tile ({kray.SPLAT_TILE_BYTES} B budget), {routes['global']} "
-          f"straight to the global planes, {routes['dropped']} dropped (straddling the "
-          f"camera plane)", flush=True)
+    box, kept = kray.footprint_boxes(slots, valid, coords, maps[0], maps[1], T, intr,
+                                     cfg.tsdf, rmax)
+    tiles = kray.tile_counts(box, intr).flatten()
+    again = kray.splat_planes(*sargs)
+    check(torch.equal(again, planes_k), f"{k}: a second call on the same inputs differs")
+    print(f"{k} tiles: {int((valid & ~kept).sum())} of the {n_valid} valid listed blocks "
+          f"dropped (straddling the camera plane); (tile, block) pairs walked "
+          f"{int(tiles.sum())} over {tiles.numel()} tiles of {kray.TILE}x{kray.TILE}, "
+          f"most on a tile {int(tiles.max())}, median {float(tiles.float().median())!r}; "
+          f"a second call bit-identical", flush=True)
+    walk = {"dropped": int((valid & ~kept).sum()), "pairs": int(tiles.sum()),
+              "most_on_a_tile": int(tiles.max())}
     return record(
         k, launches, err,
         kernel_times(k, lambda: kray.splat_planes(*sargs), 50),
@@ -759,7 +817,7 @@ def splat_record(k, cfg, slots, valid, coords, maps, T, d0, with_color, launches
         + nch * hw * 4,
         n_taps * (2.0 * nch + 8.0),
         time_ms(lambda: acc.index_add_(1, flat_all, contrib_all), 20),
-        f"K={slots.shape[0]} listed, {n_valid} valid slots (routes {routes}), rmax={rmax}, "
+        f"K={slots.shape[0]} listed, {n_valid} valid slots (tiles {walk}), rmax={rmax}, "
         f"{n_taps} tent taps, {nch} planes; valid XOR {xor} of {n_vr}, plane max rel err "
         f"{rel}; {note}"
         f"tolerance: valid XOR < 1%, depth < 1e-3 m where both valid; library = one "
@@ -1180,22 +1238,29 @@ def tsdf_update_record(cfg, state, frame, launches):
                   f"K8 (color {with_color}) changed {name} rows it was not given")
         if not with_color:
             check(torch.equal(maps_k[2], before[2]), "K8 without color changed color")
-        fused = int((w_obs > 0).sum())
+        fused = int((w_obs[valid] > 0).sum())
         notes.append(f"color {with_color}: {fused} voxels observed, sdf/weight/color max "
                      f"err {errs[-3:]}")
         if with_color:
             bench = [x.clone() for x in before]
-            times = kernel_times("K8", lambda: ktsdf.tsdf_update(*bench, *args), 200)
+            warm = kernel_times("K8", lambda: ktsdf.tsdf_update(*bench, *args), 200)
+            times = kernel_times("K8", lambda: ktsdf.tsdf_update(*bench, *args), 200,
+                                 between=l2_flush())
             plain_ms = plain_time_ms(lambda: ktsdf.tsdf_update_ref(*bench, *args), 20)
+            n_obs = fused
     n_touched = int(touched.sum())
     return record(
         "K8", launches, max(errs), times, plain_ms,
-        TSDF_UPDATE_BYTES_PER_VOXEL * n_valid * b3,
-        TSDF_UPDATE_FLOPS_PER_VOXEL * n_valid * b3, None,
+        TSDF_UPDATE_OBS_BYTES * n_valid * b3
+        + (TSDF_UPDATE_PAYLOAD_BYTES + TSDF_UPDATE_COLOR_BYTES) * n_obs,
+        TSDF_UPDATE_FLOPS_PER_VOXEL * n_obs, None,
         f"K={k} listed, {n_touched} blocks touched, {n_valid} valid rows x {b3} voxels; "
         f"{'; '.join(notes)}; tolerance: sdf and color rtol 1e-5 atol 1e-6, weight rtol "
         f"1e-6 (tests/test_pallas.py:95-104), rows not listed bit-identical; timed with "
-        f"color; library: none (no single PyTorch call)",
+        f"color and the L2 flushed before each call (warm, the same buffers back to "
+        f"back: call {warm[0]!r} ms, device {warm[1]!r} ms); bound: psi and w_obs of "
+        f"every listed voxel, the payload of the {n_obs} observed ones; library: none "
+        f"(no single PyTorch call)",
     )
 
 
@@ -1373,7 +1438,8 @@ def drift_pipeline_phase(card):
     frames.  Holds every frame's pose, at least one verified loop and no
     relocalization; prints the keyframes beyond the cadence (the sentinel's
     forced path) and both mean errors.  Returns the first verified loop's
-    inputs and the K2/K3 launches of verification."""
+    inputs, the K2/K3 launches of verification and the first loop closure's
+    BA problem (``BaRecorder``)."""
     import check_accuracy_port as cap
     from instancefusion_tpu_torch.ops import blocks, kernels
 
@@ -1382,7 +1448,7 @@ def drift_pipeline_phase(card):
     kernels.reset_launches()
     bare = cap.run_bare(cfg, frames, poses)
     bare_launches = launch_counts()
-    with LoopRecorder() as rec:
+    with LoopRecorder() as rec, BaRecorder() as barec:
         kernels.reset_launches()
         blocks.LIST_FILL.reset()
         res, rows, errs, fps = cap.run_pipeline(cfg, frames, poses)
@@ -1426,6 +1492,7 @@ def drift_pipeline_phase(card):
                                              f"{rec.k2}/{rec.k3} for {rec.calls} calls")
     rec.mean_mm = s["mean_mm"]
     rec.fill = fill
+    rec.ba = barec.first
     return rec
 
 
@@ -1547,12 +1614,15 @@ def instance_pipeline_phase(cfg, frames, poses, card):
 
 
 class RunRecorder:
-    """Wraps ``pipeline.run``: keeps the result of each run the CLI makes."""
+    """Wraps ``pipeline.run``: keeps the result of each run the CLI makes, the
+    device's peak allocation when each run returned (before the CLI's
+    exports), and every segmentation its ``segment_fn`` returned."""
 
     def __init__(self):
         from instancefusion_tpu_torch.engine import pipeline
 
-        self.mod, self.orig, self.results = pipeline, pipeline.run, []
+        self.mod, self.orig, self.results, self.peaks = pipeline, pipeline.run, [], []
+        self.segs = []
 
     def __enter__(self):
         self.mod.run = self
@@ -1562,8 +1632,17 @@ class RunRecorder:
         self.mod.run = self.orig
 
     def __call__(self, *args, **kw):
+        fn = kw.get("segment_fn")
+        if fn is not None:
+            def recorded(frame):
+                seg = fn(frame)
+                self.segs.append(seg)
+                return seg
+
+            kw["segment_fn"] = recorded
         res = self.orig(*args, **kw)
         self.results.append(res)
+        self.peaks.append(torch.cuda.max_memory_allocated())
         return res
 
 
@@ -2028,7 +2107,7 @@ def rank_drift(list_scale: int = 1) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     g.stats.reset()
-    with LoopRecorder() as rec:
+    with LoopRecorder() as rec, BaRecorder() as barec:
         kernels.reset_launches()
         blocks.LIST_FILL.reset()
         res, rows, errs, fps = cap.run_pipeline(cfg, frames, poses)
@@ -2205,10 +2284,12 @@ def unsharded_run(cfg, frames, poses) -> dict:
             "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
 
 
-def sharded_phase(card, drift_mean_mm: float, drift_fill: dict) -> dict:
-    """Phase 15: the sharded map as SHARDS ranks on the card (one launch:
-    the ranks start and load the kernels once).  Returns rank 0's launch
-    counts of (a) for the kernel records."""
+def sharded_phase(card, drift_mean_mm: float, drift_fill: dict, par: dict) -> dict:
+    """Phase 15, with the config5 phase and phase 16 (c) on the same ranks:
+    the sharded map as SHARDS ranks on the card (one launch: the ranks start
+    and load the kernels once).  `par` holds phase 16 (c)'s frames and
+    one-rank segmentations.  Returns rank 0's launch counts of (a) for the
+    kernel records."""
     import os
     import tempfile
 
@@ -2241,6 +2322,8 @@ def sharded_phase(card, drift_mean_mm: float, drift_fill: dict) -> dict:
             # one card's (k_local 2048): what the per-rank cap does to it.
             cw = pool.run(rank_drift, SHARDS)
             d = pool.run(rank_cli, seq_dir, radius, tmp)
+            e = pool.run(rank_config5, seq_dir, radius, tmp)
+            pr = pool.run(rank_parallel, par["rgb"], par["k"], 5)
     r0 = a[0]
 
     # (a) config4 at full width.
@@ -2346,7 +2429,10 @@ def sharded_phase(card, drift_mean_mm: float, drift_fill: dict) -> dict:
     pa, pb, pc = second_half(ta), second_half(tb), second_half(tc)
     spread = float(np.abs(pa - pb).max()) if len(tb) == len(ta) else float("inf")
     resume_diff = float(np.abs(pa - pc).max()) if pa.shape == pc.shape else float("inf")
-    resume_bound = 3.0 * max(spread, RESUME_SPREAD_M)
+    # Bit for bit: the poses the runs computed, not their printed trajectories.
+    runs_equal = np.array_equal(d0["a"]["poses"], d0["b"]["poses"])
+    resume_equal = np.array_equal(np.asarray(d0["a"]["poses"])[SEQ_POSES:],
+                                  np.asarray(d0["c"]["poses"]))
     ate_c = ate_rmse(d0["c"]["poses"], seq_poses[SEQ_POSES:].cpu().numpy())
     print(f"sharded (d): cli run --preset config4 --shards {SHARDS} on the TUM fixture: "
           f"{sa['frames']} frames, {sa['fps']!r} frames/s with decode ({d0['a']['wall']!r} s), "
@@ -2357,8 +2443,9 @@ def sharded_phase(card, drift_mean_mm: float, drift_fill: dict) -> dict:
           f"{sc['frames']} frames, the restored state equal to the checkpoint bit for bit on "
           f"every rank: {[r['restored'] for r in d]}, ATE {ate_c * 1e3!r} mm, "
           f"largest difference of the trajectory's entries (frames {SEQ_POSES} on) from the "
-          f"uninterrupted run's {resume_diff!r} (bound {resume_bound!r}), two uninterrupted "
-          f"runs {spread!r} apart; in-frustum lists of the first run per rank "
+          f"uninterrupted run's {resume_diff!r}, poses bit-identical {resume_equal}; two "
+          f"uninterrupted runs {spread!r} apart, poses bit-identical {runs_equal}; in-frustum "
+          f"lists of the first run per rank "
           f"{[tuple(r['a']['fill'].values()) for r in d]}; decode "
           f"{[round(r['decode_ms'], 3) for r in d]} ms a frame per rank with every rank "
           f"decoding at once [{card}]", flush=True)
@@ -2369,20 +2456,570 @@ def sharded_phase(card, drift_mean_mm: float, drift_fill: dict) -> dict:
     check(len(moved) > 0, "sharded (d): no reshard migrated rows")
     check(all(x[1] and x[2] for r in d for x in r["reshards"]),
           "sharded (d): a reshard lost or duplicated a block")
-    # K5 adds into its planes with float atomics, so two runs on the card
-    # part in the last bits and drift apart over frames (the CPU test,
-    # tests/test_torch_pipeline_sharded.py, holds a resumed run equal to the
-    # uninterrupted one exactly).  Here: the restore is exact on every rank,
-    # and the resumed run stays within three times the larger of the two
-    # uninterrupted runs' spread and RESUME_SPREAD_M of the first.
+    # Every sum on the card runs in a fixed order (K5 without atomics, the
+    # gloo all-reduce in its fixed ring), so two runs repeat bit for bit and
+    # a resumed run equals the uninterrupted one, as the CPU test
+    # (tests/test_torch_pipeline_sharded.py) holds it.
     check(len(tc) == SEQ_POSES and all(r["restored"] == [(SEQ_POSES, True)] for r in d),
           f"sharded (d): the restore left the checkpoint: {[r['restored'] for r in d]}")
-    check(resume_diff <= resume_bound,
-          f"sharded (d): resumed trajectory {resume_diff} from the uninterrupted run's, "
-          f"bound {resume_bound}")
+    check(runs_equal, f"sharded (d): two uninterrupted runs differ by {spread}")
+    check(resume_equal, f"sharded (d): the resumed run differs from the uninterrupted one "
+                        f"by {resume_diff}")
     check(ate_c < voxel, f"sharded (d): resumed ATE {ate_c}")
     check(d0["mesh_bytes"] > 1000, "sharded (d): no mesh exported")
+
+    config5_checks(card, e)
+    parallel_checks(card, pr, par)
     return r0["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: whether the card's runs repeat; the segmentation head's training,
+# its data- and tensor-parallel forward.
+
+def _clone_tree(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone_tree(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone_tree(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    return x
+
+
+def _leaves(x, path=""):
+    if isinstance(x, torch.Tensor):
+        yield path, x
+    elif isinstance(x, np.ndarray):
+        yield path, torch.from_numpy(np.ascontiguousarray(x))
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        for k, v in zip(x._fields, x):
+            yield from _leaves(v, f"{path}.{k}")
+    elif isinstance(x, (list, tuple)):
+        for i, v in enumerate(x):
+            yield from _leaves(v, f"{path}[{i}]")
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from _leaves(v, f"{path}.{k}")
+
+
+def differences(a, b) -> dict:
+    """The tensor leaves of `a` and `b` that differ bit for bit, each with
+    the largest absolute difference of its elements (inf where the shapes
+    differ)."""
+    out = {}
+    for (path, x), (_, y) in zip(_leaves(a), _leaves(b)):
+        if x.shape != y.shape:
+            out[path] = float("inf")
+            continue
+        if x.is_floating_point():
+            same = torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            out[path] = float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+    return out
+
+
+def digest(tree) -> str:
+    """sha1 of the bytes of every tensor leaf of `tree`, in order."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for _, x in _leaves(tree):
+        h.update(x.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+class BaRecorder:
+    """Wraps ``ba.optimize_hybrid_paired``: keeps the inputs of its first
+    call (cloned), the loop problem of the first closure."""
+
+    def __init__(self):
+        from instancefusion_tpu_torch.ops import ba
+
+        self.mod, self.orig, self.first = ba, ba.optimize_hybrid_paired, None
+
+    def __enter__(self):
+        self.mod.optimize_hybrid_paired = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.optimize_hybrid_paired = self.orig
+
+    def __call__(self, *args, **kw):
+        if self.first is None:
+            self.first = (_clone_tree(args), _clone_tree(kw))
+        return self.orig(*args, **kw)
+
+
+def splat_inputs(cfg, state, frame):
+    """K5's inputs as the main path makes them: the frustum list of `state`'s
+    map at `frame`'s pose."""
+    from instancefusion_tpu_torch.ops import blocks
+
+    vol, T = state.volume, frame.T_wc
+    k = min(cfg.tsdf.touched_capacity, blocks.num_blocks_per_axis(cfg.tsdf) ** 3)
+    slots, valid = blocks.frustum_slots(vol, T, cfg.intrinsics, cfg.tsdf,
+                                        cfg.raycast.near, cfg.raycast.far, k)
+    return (slots, valid, vol.block_coords, vol.sdf, vol.weight, vol.color, T,
+            cfg.intrinsics, cfg.tsdf)
+
+
+def repeat_phase(card, main_in, inst_in, ba_in) -> dict:
+    """Phase 16 (a): does the card repeat itself?  Each op runs twice on the
+    same inputs and the results are compared bit for bit: K5 with and
+    without color on the main path's frustum list (`main_in`: config,
+    state, next frame); ``optimize_hybrid_paired`` on the first loop
+    problem of the drift rig (`ba_in`: its recorded arguments);
+    ``engine/instances``' merges and ``associate`` (and ``apply_merges``
+    folding every row into one), and the whole
+    ``fuse_segmentation`` (K7 included) on copies of the instance path's
+    state (`inst_in`: config, state, frame); then ``cli.main run --preset
+    config2`` on phase 14's fixture twice (loops, no streaming), trajectories
+    compared bit for bit.  Returns each item's differing fields with their
+    largest difference (empty where the two runs agree)."""
+    import os
+    import tempfile
+
+    from instancefusion_tpu_torch.config import config2_tum_fr3_long_office
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.engine import instances as inst
+    from instancefusion_tpu_torch.engine import slam
+    from instancefusion_tpu_torch.ops import ba, labels
+    from instancefusion_tpu_torch.ops.kernels import raycast as kray
+
+    out = {}
+    cfg, state, frame = main_in
+    sin = splat_inputs(cfg, state, frame)
+    for with_color in (False, True):
+        args = (*sin, with_color, cfg.raycast.splat_rmax)
+        first = kray.splat_planes(*args)
+        out["K5 color" if with_color else "K5"] = differences(first, kray.splat_planes(*args))
+
+    args, kw = ba_in
+    out["ba.optimize_hybrid_paired"] = differences(ba.optimize_hybrid_paired(*args, **kw),
+                                                   ba.optimize_hybrid_paired(*args, **kw))
+
+    icfg, istate, iframe = inst_in
+    seg = synthetic.gt_segmentation(iframe.instance, icfg.instances.max_instances)
+
+    def associate():
+        pred_gid = labels.sample_nearest(istate.votes, istate.volume, istate.pred.vertex_w,
+                                         istate.pred.valid, icfg.tsdf)
+        src, dst, ok = inst.find_merges(istate.table, seg, pred_gid, icfg.instances)
+        table = inst.apply_merges(istate.table, src, dst, ok)
+        pred_gid = labels.apply_table(labels.merge_table(src, dst, ok,
+                                                         icfg.instances.max_instances),
+                                      pred_gid)
+        return inst.associate(table, seg, pred_gid, icfg.instances)
+
+    out["instances.associate"] = differences(associate(), associate())
+
+    # Several rows folded into one in one call: float sums into one row.
+    n_rows = istate.table.active.shape[0]
+    gen = torch.Generator(device=istate.table.score.device).manual_seed(0)
+    table = istate.table._replace(
+        active=torch.ones_like(istate.table.active),
+        score=torch.rand(n_rows, generator=gen, device=gen.device) * 10.0)
+    src = torch.arange(1, n_rows, dtype=torch.int32, device=gen.device)
+    dst = torch.zeros_like(src)
+    ok = torch.ones_like(src, dtype=torch.bool)
+    out["instances.apply_merges, rows into one"] = differences(
+        inst.apply_merges(table, src, dst, ok), inst.apply_merges(table, src, dst, ok))
+
+    def fuse():
+        st = istate._replace(votes=_clone_tree(istate.votes))
+        st = slam.fuse_segmentation(icfg, st, seg, iframe.depth, istate.T_wc)
+        return st.votes, st.table
+
+    out["slam.fuse_segmentation"] = differences(fuse(), fuse())
+
+    ccfg = config2_tum_fr3_long_office()
+    with tempfile.TemporaryDirectory() as tmp:
+        seq_dir = os.path.join(tmp, "seq")
+        write_tum_fixture(seq_dir, ccfg)
+        base = ["run", "--preset", "config2", "--dataset", seq_dir, "--frames",
+                str(2 * SEQ_POSES), "--loops", "--quiet"]
+        runs = [run_cli(base) for _ in range(2)]
+    (ra,), sa = runs[0][:2]
+    (rb,), _ = runs[1][:2]
+    out["cli run --preset config2"] = differences(np.asarray(ra.poses), np.asarray(rb.poses))
+    for name, diff in out.items():
+        print(f"repeat (a): {name} twice on the same inputs: "
+              f"{'bit-identical' if not diff else 'differs: ' + repr(diff)} [{card}]",
+              flush=True)
+    print(f"repeat (a): the two config2 runs: ATE {sa['ate_rmse_m'] * 1e3!r} mm, "
+          f"{sa['frames']} frames, {sa['loop_closures']} loops", flush=True)
+    return out
+
+
+# The record of phase 16 (a) before K5 summed in a fixed order: ``python3
+# chip_smoke.py --repeat`` on the tree with the atomic K5 (PERF.md, the
+# order-fixed K5; NVIDIA H100 80GB HBM3, 700.00 W).
+REPEAT_BEFORE = {"K5": "differs (planes up to 3.36e7 apart, of sums up to e^39)",
+                 "K5 color": "differs (planes up to 6.71e7 apart)",
+                 "ba.optimize_hybrid_paired": "bit-identical",
+                 "instances.associate": "bit-identical",
+                 "slam.fuse_segmentation": "bit-identical",
+                 "cli run --preset config2": "differs (poses up to 2.619e-4 apart)"}
+
+
+def repeat_record(card, after: dict) -> None:
+    """Phase 16 (d): (a)'s record beside the same measurement with the atomic K5."""
+    for name, diff in after.items():
+        print(f"repeat (d): {name}: before {REPEAT_BEFORE.get(name, 'not measured')}; "
+              f"after {'bit-identical' if not diff else 'differs: ' + repr(diff)} [{card}]",
+              flush=True)
+
+
+TRAIN_STEPS, TRAIN_CPU_STEPS = 300, 3
+
+
+def _sha_file(path) -> str:
+    import hashlib
+
+    return hashlib.sha1(open(path, "rb").read()).hexdigest()
+
+
+def trainer_phase(card) -> None:
+    """Phase 16 (b): ``models/train_seghead.train`` on the card, TRAIN_STEPS
+    steps of its schedule at the packaged head's width on the reference
+    trainer's data.  The mean loss of the last 50 steps must fall below
+    half the first step's; the first TRAIN_CPU_STEPS steps must equal the
+    same steps on the CPU from the same initial weights and frames within
+    1e-4 relative; a second run of the same steps must give the same losses
+    and parameters bit for bit; the checkpoint, written to a temporary
+    directory, must reload through ``load_pretrained`` to the head's
+    parameters rounded to fp16, with outputs equal to those of the rounded
+    head; the packaged weights must be unchanged.  Prints steps/s at each size, peak memory
+    and the accuracy report (printed, not limited: 300 of 4000 steps)."""
+    import copy
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from instancefusion_tpu_torch.models import segmentation as segm
+    from instancefusion_tpu_torch.models import train_seghead as ts
+
+    packaged = Path(segm.__file__).parent / segm.PRETRAINED_SYNTHETIC["file"]
+    sha = _sha_file(packaged)
+    t0 = time.perf_counter()
+    data = ts.make_dataset()
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, hist, _ = ts.train(TRAIN_STEPS, data=data, log=lambda line: None)
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    loss = hist["loss"]
+    again, again_hist, _ = ts.train(TRAIN_STEPS, data=data, log=lambda line: None)
+    steps_differ = [i for i, (a, b) in enumerate(zip(loss, again_hist["loss"])) if a != b]
+    params_differ = differences(model.state_dict(), again.state_dict())
+    heights = np.asarray(hist["height"])
+    secs = np.asarray(hist["seconds"])
+    rate = {f"{int(h) * 4 // 3}x{int(h)}": float((heights == h).sum() / secs[heights == h].sum())
+            for h in sorted(set(hist["height"]))}
+    cpu_data = [(type(f)(*(x.cpu() for x in f)), c.cpu()) for f, c in data]
+    _, cpu_hist, _ = ts.train(TRAIN_STEPS, device="cpu", data=cpu_data, stop=TRAIN_CPU_STEPS,
+                              log=lambda line: None)
+    first = loss[:TRAIN_CPU_STEPS]
+    cpu_rel = np.abs(np.subtract(first, cpu_hist["loss"])) / np.abs(cpu_hist["loss"])
+    acc = ts.report(model, data, log=lambda line: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "head.npz")
+        segm.save_pretrained(path, model)
+        loaded = segm.load_pretrained(path)
+    rounded = copy.deepcopy(model)
+    with torch.no_grad():
+        for q in rounded.parameters():
+            q.copy_(q.half().float())
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(loaded.state_dict().values(), rounded.state_dict().values()))
+    rgb = data[0][0].color
+    with torch.no_grad():
+        out_err = max(float((a - b).abs().max()) for a, b in zip(loaded(rgb), rounded(rgb)))
+    late = float(np.mean(loss[-50:]))
+    print(f"trainer (b): {TRAIN_STEPS} steps of the {ts.STEPS}-step recipe's data ({len(data)} "
+          f"frames rendered in {data_s!r} s) at width {ts.WIDTH}: loss first {loss[0]!r}, mean "
+          f"of the last 50 {late!r} (every 50th: {loss[::50]}); steps/s {rate}; peak "
+          f"memory {peak_gib!r} GiB; first {TRAIN_CPU_STEPS} losses {first} against "
+          f"the CPU's {cpu_hist['loss']} (relative {cpu_rel.tolist()}); accuracy {acc}; "
+          f"checkpoint reloaded: parameters equal to the fp16-rounded head {same_params}, "
+          f"outputs within {out_err!r}; a second run of the {TRAIN_STEPS} steps: losses that "
+          f"differ at steps {steps_differ[:5]} ({len(steps_differ)} in all), parameters that "
+          f"differ {params_differ} [{card}]", flush=True)
+    check(late < 0.5 * loss[0], f"trainer: loss {late} did not fall below half of {loss[0]}")
+    check(not steps_differ and not params_differ,
+          f"trainer: a second run differs at steps {steps_differ[:5]}, parameters "
+          f"{params_differ}")
+    check(bool((cpu_rel <= 1e-4).all()), f"trainer: card vs CPU losses {cpu_rel}")
+    check(same_params and out_err <= 1e-6,
+          f"trainer: reloaded head params equal {same_params}, outputs {out_err}")
+    check(_sha_file(packaged) == sha, "trainer: the packaged weights changed")
+
+
+def rank_parallel(rgb: torch.Tensor, k: int, reps: int) -> dict:
+    """Phase 16 (c) on a rank: the digest of the packaged head's outputs on
+    every frame of `rgb`, ``dp_segment_fn`` on the batch and
+    ``tp_segment_fn`` on its first frame, then ms per call and the
+    collectives' calls, bytes and ms a call."""
+    from instancefusion_tpu_torch.models import parallel
+    from instancefusion_tpu_torch.models import segmentation as segm
+    from instancefusion_tpu_torch.parallel import mesh
+
+    g = mesh.current()
+    torch.cuda.empty_cache()
+    head = segm.load_pretrained(device=g.device)
+    x = rgb.to(g.device)
+    dp = parallel.dp_segment_fn(g, k)
+    shard_params, tp = parallel.tp_segment_fn(g, k)
+    thead = shard_params(head)
+    with torch.no_grad():
+        heads = [digest(head(f)) for f in x]
+    out = {"head_digests": heads, "dp": dp(head, x), "tp": tp(thead, x[0]),
+           "split": [n for n, d in parallel.tp_param_shardings(head, g).items() if d == 0]}
+    for name, fn in (("dp", lambda: dp(head, x)), ("tp", lambda: tp(thead, x[0])),
+                     ("one", lambda: segm.segment(head, x[0], k))):
+        g.barrier()
+        torch.cuda.synchronize()
+        g.stats.reset()
+        g.timing = True
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+        g.timing = False
+        out[f"{name}_collectives"] = {"calls": g.stats.calls / reps,
+                                      "bytes": g.stats.bytes / reps,
+                                      "ms": g.stats.seconds * 1e3 / reps}
+    return out
+
+
+def parallel_inputs(cfg, frames, stable, card) -> dict:
+    """Phase 16 (c)'s frames (SHARDS of phase 10's frames whose grouping
+    survives output perturbations), the main process's one-rank ``segment``
+    of each, with its ms per call, and the digest of the head's outputs on
+    each."""
+    from instancefusion_tpu_torch.models import segmentation as segm
+
+    check(len(stable) >= SHARDS, f"only {len(stable)} stable frames for DP over {SHARDS}")
+    k = cfg.instances.max_instances
+    picks = stable[:SHARDS]
+    rgb = torch.stack([frames[i].color for i in picks])
+    head = segm.load_pretrained()
+    single = [segm.segment(head, x, k) for x in rgb]
+    with torch.no_grad():
+        heads = [digest(head(x)) for x in rgb]
+    ms = time_ms(lambda: segm.segment(head, rgb[0], k), 10)
+    return {"rgb": rgb.cpu(), "single": [segm.Segmentation(*(f.cpu() for f in s))
+                                         for s in single],
+            "head_digests": heads, "ms": ms, "k": k, "frames": picks}
+
+
+def parallel_checks(card, p, par) -> None:
+    """Phase 16 (c): DP and TP over SHARDS ranks against the main process's
+    one-rank ``segment`` of the same frames.  On every rank: the head's
+    outputs on each frame bit-identical to the main process's; DP's frame
+    i with mask_id, classes and scores equal to the one-rank segment of
+    frame i; TP's frame with mask_id and classes equal and scores within
+    1e-4 (tests/test_shard.py's bounds)."""
+    r0 = p[0]
+    single = par["single"]
+
+    def agree(a, b):
+        return (float((a.mask_id == b.mask_id).float().mean()), torch.equal(a.classes, b.classes),
+                float((a.scores - b.scores).abs().max()))
+
+    heads = [sum(a == b for a, b in zip(r["head_digests"], par["head_digests"])) for r in p]
+    dp = [[agree(seg_at(r["dp"], i), single[i]) for i in range(len(single))] for r in p]
+    tp = [agree(r["tp"], single[0]) for r in p]
+    print(f"parallel (c): the packaged head at {tuple(par['rgb'].shape[1:3])} on {SHARDS} ranks "
+          f"(gloo over the one card), frames {par['frames']}: DP {r0['dp_ms']!r} ms a batch of "
+          f"{len(single)} (collectives a call {r0['dp_collectives']}), TP {r0['tp_ms']!r} ms a "
+          f"frame (collectives a call {r0['tp_collectives']}; split {len(r0['split'])} conv "
+          f"weights: {r0['split']}), one rank {r0['one_ms']!r} ms a frame with the other ranks "
+          f"idle (the main process alone: {par['ms']!r}); frames whose head outputs equal the "
+          f"main process's bit for bit, a rank {heads} of {len(single)}; against the main "
+          f"process's one-rank segment (mask_id equal share, classes equal, largest score "
+          f"difference): DP on rank 0 {dp[0]}, TP on each rank {tp} [{card}]", flush=True)
+    check(all(h == len(single) for h in heads),
+          f"parallel (c): the head's outputs differ from the main process's: {heads}")
+    check(all(x == (1.0, True, 0.0) for row in dp for x in row),
+          f"parallel (c): DP differs from the one-rank segment: {dp}")
+    check(all(x[:2] == (1.0, True) and x[2] <= 1e-4 for x in tp),
+          f"parallel (c): TP differs from the one-rank segment: {tp}")
+    check(r0["split"] == [f"blocks.{i}.conv.weight" for i in range(8)],
+          f"parallel (c): split weights {r0['split']}")
+
+
+def seg_at(seg, i: int):
+    """Frame i of a batched ``Segmentation``."""
+    return type(seg)(*(x[i] for x in seg))
+
+
+def rank_config5(seq_dir: str, radius: float, tmp: str) -> dict:
+    """The config5 phase on a rank: ``cli.main run --preset config5 --shards
+    SHARDS --instances --seg-head trained`` on phase 14's fixture with loops
+    and streaming, exports from rank 0; peak memory above what the rank
+    held before (and where the running peak grew: after which of the
+    pipeline's Timer phases, on which frame, by more than 0.1 GiB),
+    launches, poses, and digests of each segmentation the head gave and of
+    the final instance table."""
+    import contextlib
+    import io
+    import os
+
+    from instancefusion_tpu_torch import cli
+    from instancefusion_tpu_torch.engine import pipeline
+    from instancefusion_tpu_torch.ops import blocks, kernels
+    from instancefusion_tpu_torch.parallel import mesh
+    from instancefusion_tpu_torch.utils.metrics import Timer
+
+    growth, steps = [], [0]
+
+    class PeakTimer(Timer):
+        """The pipeline's phase timer, noting the running peak after each
+        phase where it grew by more than 0.1 GiB, with the frame (the
+        steps so far)."""
+
+        @contextlib.contextmanager
+        def phase(self, name, sync_tree=None):
+            with Timer.phase(self, name, sync_tree):
+                yield
+            steps[0] += name == "step"
+            peak = torch.cuda.max_memory_allocated()
+            if peak - (growth[-1][2] if growth else base) > 0.1 * 2**30:
+                growth.append((name, steps[0], peak))
+
+    g = mesh.current()
+    torch.cuda.empty_cache()  # what the earlier tasks left cached, for the other ranks
+    paths = {k: os.path.join(tmp, f"c5_{k}") for k in ("traj.txt", "mesh.ply", "inst",
+                                                       "m.jsonl")}
+    argv = ["run", "--preset", "config5", "--dataset", seq_dir, "--frames", str(2 * SEQ_POSES),
+            "--shards", str(g.size), "--instances", "--seg-head", "trained", "--loops",
+            "--quiet", "--stream-every", str(STREAM_EVERY), "--stream-radius", str(radius),
+            "--export-traj", paths["traj.txt"], "--export-mesh", paths["mesh.ply"],
+            "--export-instances", paths["inst"], "--metrics-out", paths["m.jsonl"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    blocks.LIST_FILL.reset()
+    buf = io.StringIO()
+    pipeline.Timer = PeakTimer
+    try:
+        with RunRecorder() as runs, contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        pipeline.Timer = Timer
+    out = {"rc": rc, "wall": time.perf_counter() - t0, "poses": runs.results[0].poses,
+           "segs": [digest(sg) for sg in runs.segs],
+           "table": digest(runs.results[0].state.table),
+           "launches": launch_counts(), "fill": blocks.LIST_FILL.read(),
+           "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "run_peak_gib": (runs.peaks[0] - base) / 2**30,
+           "growth": [(name, k, round((peak - base) / 2**30, 4)) for name, k, peak in growth]}
+    if g.rank == 0:
+        out["summary"] = json.loads(buf.getvalue().strip().splitlines()[-1])["summary"]
+        out["rows"] = [json.loads(ln) for ln in open(paths["m.jsonl"])]
+        out["traj"] = open(paths["traj.txt"]).read().splitlines()
+        out["mesh_bytes"] = os.path.getsize(paths["mesh.ply"])
+        out["plys"] = sorted(os.listdir(paths["inst"])) if os.path.isdir(paths["inst"]) else []
+    return out
+
+
+def config5_checks(card, e) -> None:
+    """The config5 phase: every frame tracked, ATE below the 2 cm voxel,
+    every rank's poses, segmentations (every rank runs the head on the same
+    frame) and instance table equal to rank 0's bit for bit, K7 launched on
+    every rank, the trajectory, mesh and instance models exported.  The
+    votes are each rank's own rows; what they are fused from (poses,
+    segmentations, table) is held equal."""
+    from instancefusion_tpu_torch.config import config5_multihost
+
+    cfg = config5_multihost()
+    e0 = e[0]
+    s = e0["summary"]
+    rows = e0["rows"]
+    s_in = sum(r.get("stream_in") or 0 for r in rows)
+    s_out = sum(r.get("stream_out") or 0 for r in rows)
+    print(f"config5: cli run --preset config5 --shards {SHARDS} --instances --seg-head trained "
+          f"on the TUM fixture ({cfg.tsdf.grid_size}^3 of {cfg.tsdf.voxel_size} m voxels, "
+          f"table {cfg.tsdf.table_capacity} = {SHARDS} x {cfg.tsdf.table_capacity // SHARDS} "
+          f"rows): {s['frames']} frames, {s['fps']!r} frames/s with decode ({e0['wall']!r} s), "
+          f"ATE {s['ate_rmse_m'] * 1e3!r} mm, {s['keyframes']} keyframes, {s['loop_closures']} "
+          f"loops; stream_in {s_in}, stream_out {s_out}; peak memory per rank above what it "
+          f"held before (GiB): until pipeline.run returned "
+          f"{[round(r['run_peak_gib'], 4) for r in e]}, with the exports (the map gathered "
+          f"to every rank) {[round(r['peak_gib'], 4) for r in e]}; on rank 0 the running peak "
+          f"grew (after the phase, steps so far, GiB) {e0['growth'][:12]}; launches "
+          f"on rank 0 "
+          f"{e0['launches']}; in-frustum lists per rank {[tuple(r['fill'].values()) for r in e]}; "
+          f"{len(e0['plys'])} instance models, mesh {e0['mesh_bytes']} bytes; ranks whose "
+          f"{len(e0['segs'])} segmentations and instance table equal rank 0's "
+          f"{[r['segs'] == e0['segs'] for r in e]}, {[r['table'] == e0['table'] for r in e]} "
+          f"[{card}]", flush=True)
+    check(all(r["rc"] == 0 for r in e), "config5: cli exit code")
+    check(s["frames"] == 2 * SEQ_POSES and all(r["track_ok"] for r in rows),
+          "config5: a frame failed to track")
+    check(s["ate_rmse_m"] < cfg.tsdf.voxel_size,
+          f"config5: ATE {s['ate_rmse_m']} >= {cfg.tsdf.voxel_size}")
+    check(all(np.array_equal(r["poses"], e0["poses"]) for r in e),
+          "config5: a rank's poses left rank 0's")
+    check(e0["segs"] and all(r["segs"] == e0["segs"] for r in e),
+          "config5: a rank's segmentations left rank 0's")
+    check(all(r["table"] == e0["table"] for r in e), "config5: a rank's instance table left rank 0's")
+    check(all(r["launches"]["K7"] > 0 for r in e), "config5: K7 never launched on a rank")
+    check(len(e0["traj"]) == 2 * SEQ_POSES and e0["mesh_bytes"] > 1000 and e0["plys"],
+          "config5: exports missing")
+
+
+def repeat_main() -> None:
+    """``python3 chip_smoke.py --repeat``: the card, the build and phase 16
+    (a) alone, on inputs it makes itself (the main and instance paths over
+    WARMUP + CHUNK frames, the drift rig's pipeline for its first loop
+    problem).  Prints what differs and exits 0 either way."""
+    import check_accuracy_port as cap
+    from instancefusion_tpu_torch.datasets import synthetic
+    from instancefusion_tpu_torch.engine import slam
+    from instancefusion_tpu_torch.models.segmentation import PRETRAINED_SYNTHETIC
+    from instancefusion_tpu_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    _build.build()
+    cfg = bench_config()
+    icfg = instance_config(PRETRAINED_SYNTHETIC["num_classes"])
+    n = WARMUP + CHUNK
+    poses = synthetic.orbit_trajectory(n + 1)
+    frames = [synthetic.render_frame(poses[i], cfg.intrinsics) for i in range(n + 1)]
+    states = []
+    for c in (cfg, icfg):
+        st = slam.init_state(c, poses[0])
+        for i, f in enumerate(frames[:n]):
+            if c.use_instances and i % 2 == 0:
+                seg = synthetic.gt_segmentation(f.instance, c.instances.max_instances)
+                st, _ = slam.step_seg(c, st, f.depth, f.color, seg)
+            else:
+                st, _ = slam.step(c, st, f.depth, f.color)
+        states.append(st)
+    pcfg = cap.pipeline_config()
+    dposes, dframes = cap.rig_frames(pcfg, DRIFT_FRAMES, True, 1.6, 0.02, seed=0)
+    with BaRecorder() as barec:
+        cap.run_pipeline(pcfg, dframes, dposes)
+    check(barec.first is not None, "repeat: the drift rig closed no loop")
+    repeat_phase(card, (cfg, states[0], frames[n]), (icfg, states[1], frames[n - 1]),
+                 barec.first)
+    print(card, flush=True)
 
 
 def main() -> None:
@@ -2417,6 +3054,7 @@ def main() -> None:
     istate, ilaunches, _, _ = run_path(icfg, frames[:n], poses[:n], card,
                                        "instance path", seg_every=2)
     instance_checks(icfg, istate, frames[n - 1])
+    inst_in = (icfg, _clone_tree(istate), frames[n - 1])
     rcfg = rgb_config()
     tex = [synthetic.render_frame(poses[i], cfg.intrinsics, texture=True)
            for i in range(n + 1)]
@@ -2440,14 +3078,22 @@ def main() -> None:
     recs.append(tsdf_update_record(mcfg, mstate, frames[n], mlaunches))
     # Last: the local loop drifts and ages a copy of the state's stamps and pose.
     local_loop_phase(rcfg, rstate, tex[n - 1], card)
-    head_phase(icfg, istate, frames[:n], frames[n], card)
+    _, stable = head_phase(icfg, istate, frames[:n], frames[n], card)
     accuracy_phase(card)
     rec = drift_pipeline_phase(card)
     forced_keyframe_phase(frames[:n], poses[:n], card)
     instance_pipeline_phase(icfg, frames, poses, card)
     recs += loop_kernel_records(rec)
     sequence_runner_phase(card)
-    sharded = sharded_phase(card, rec.mean_mm, rec.fill)
+    after = repeat_phase(card, (cfg, state, frames[n]), inst_in, rec.ba)
+    check(not any(after.values()), f"repeat (a): ops differ run to run: {after}")
+    trainer_phase(card)
+    par = parallel_inputs(icfg, frames[:n], stable, card)
+    # Nine processes share the card from here on: let go of this one's states.
+    del state, istate, rstate, mstate, inst_in
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(card, rec.mean_mm, rec.fill, par)
+    repeat_record(card, after)
     ids = {name: k for k, name in NAMES.items()}
     for r in recs:
         # Launches a rank made on phase 15's sharded main path.
@@ -2460,4 +3106,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--repeat"]:
+        repeat_main()
+    else:
+        main()

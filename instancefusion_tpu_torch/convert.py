@@ -195,6 +195,31 @@ def seghead_from_flax(arrays: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return out
 
 
+def seghead_to_flax(state_dict: dict) -> dict[str, np.ndarray]:
+    """The reference's flax parameters (as ``save_pretrained`` keys them,
+    fp32 numpy, HWIO kernels) from a ``PanopticHead`` state dict: the
+    inverse of ``seghead_from_flax``."""
+    outputs = {v: k for k, v in _HEAD_OUT.items()}
+    out = {}
+    for name, value in state_dict.items():
+        *prefix, leaf = name.split(".")
+        if prefix[0] == "blocks":
+            layer = {"conv": "Conv_0", "norm": "GroupNorm_0"}[prefix[2]]
+            path = [f"_ConvBlock_{int(prefix[1])}", layer]
+        else:
+            layer = "Conv_0"
+            path = [outputs[prefix[0]]]
+        x = value.detach().float().cpu()
+        if leaf == "bias":
+            key = "bias"
+        elif layer == "GroupNorm_0":
+            key = "scale"
+        else:  # OIHW -> HWIO
+            key, x = "kernel", x.permute(2, 3, 1, 0)
+        out["['params']" + "".join(f"['{p}']" for p in path + [key])] = x.contiguous().numpy()
+    return out
+
+
 # The sharded map (``parallel/shard.py``): the reference holds it as global
 # arrays with the payload rows of shard s at [s Cl, (s+1) Cl); a rank of the
 # port holds its own rows and the replicated rest.

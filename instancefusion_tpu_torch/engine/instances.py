@@ -136,7 +136,9 @@ def associate(table: InstanceTable, seg: Segmentation, pred_gid: torch.Tensor,
     active = _spill(table.active).index_put_((upd,), torch.ones_like(upd, dtype=torch.bool))
     cls = _spill(table.cls).index_put_(
         (upd,), torch.where(cur_cls == 0, seg.classes.to(torch.int32), cur_cls))
-    score = _spill(table.score).index_add_(0, upd, seg.scores.float())
+    # Float sums into rows that may repeat: index_put_ with accumulate adds
+    # in a fixed order on every device (index_add_ uses atomics on CUDA).
+    score = _spill(table.score).index_put_((upd,), seg.scores.float(), accumulate=True)
     matches = _spill(table.matches).index_add_(0, upd, (matched >= 0).to(torch.int32))
     new_table = InstanceTable(
         active=active[:n], cls=cls[:n], score=score[:n],
@@ -177,8 +179,9 @@ def apply_merges(table: InstanceTable, src: torch.Tensor, dst: torch.Tensor,
     srows = torch.where(ok, src, torch.full_like(src, n)).long()
     drows = torch.where(ok, dst, torch.full_like(dst, n)).long()
     src_c = src.clamp(0, n - 1).long()
-    score = _spill(table.score).index_add_(
-        0, drows, torch.where(ok, table.score[src_c], torch.zeros_like(table.score[src_c])))
+    score = _spill(table.score).index_put_(
+        (drows,), torch.where(ok, table.score[src_c], torch.zeros_like(table.score[src_c])),
+        accumulate=True)
     matches = _spill(table.matches).index_add_(
         0, drows, torch.where(ok, table.matches[src_c], torch.zeros_like(table.matches[src_c])))
 

@@ -1,4 +1,4 @@
-"""Instance-segmentation head (port of ``models/segmentation.py``, inference).
+"""Instance-segmentation head (port of ``models/segmentation.py``).
 
 A Panoptic-DeepLab-style encoder/decoder (strided 3x3 convolutions,
 GroupNorm, GELU, skip connections) predicts per-pixel semantic logits, an
@@ -13,11 +13,19 @@ offset (H, W, 2).  The packaged weights are the reference's flax
 checkpoint, carried across by ``convert.seghead_from_flax``.  Three details
 keep the two packages equal: flax's ``SAME`` padding (asymmetric for
 stride 2 on even sizes), its GroupNorm epsilon (1e-6) and its tanh GELU.
-Training is a later slice.
+
+Training: ``init_params`` (flax's initializers from a ``torch.Generator``),
+``targets_from_instances`` (Panoptic-DeepLab targets from instance ids),
+``loss_fn``, ``train_step`` (one ``torch.optim`` update), ``cosine_decay``
+(optax's schedule) and ``save_pretrained``, which writes the reference's
+checkpoint format so that either package loads it.  The trainer is
+``models/train_seghead.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from pathlib import Path
 from typing import NamedTuple
@@ -56,6 +64,57 @@ def _group_norm(x, norm: nn.GroupNorm):
     var, mean = torch.var_mean(xg, dim=-1, keepdim=True, correction=0)
     y = ((xg - mean) * torch.rsqrt(var + norm.eps)).reshape(x.shape)
     return y * norm.weight[:, None, None] + norm.bias[:, None, None]
+
+
+@contextlib.contextmanager
+def _without_cudnn():
+    """A context in which convolutions on the card run as im2col and
+    cuBLAS products instead of through cuDNN.  cuDNN picks a convolution's
+    algorithm at a shape's first call by the memory then free, so two
+    processes (ranks sharing a card, a second run) can round the same
+    convolution differently, and some of its backward algorithms add with
+    atomics; cuBLAS gives the same bits for the same shapes in every
+    process.  The head's forward and ``train_step``'s backward run in it."""
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = was
+
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_matrix(n_in: int, n_out: int, dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """(n_out, n_in) weights of ``F.interpolate``'s bilinear resize along one
+    axis (``align_corners=False``: source (i + 0.5) n_in / n_out - 0.5,
+    clamped at 0)."""
+    src = np.maximum((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0.0)
+    i0 = np.floor(src).astype(np.int64)
+    frac = src - i0
+    a = np.zeros((n_out, n_in))
+    rows = np.arange(n_out)
+    np.add.at(a, (rows, i0), 1.0 - frac)
+    np.add.at(a, (rows, np.minimum(i0 + 1, n_in - 1)), frac)
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+class _Upsample(torch.autograd.Function):
+    """``F.interpolate`` bilinear (``align_corners=False``) to `size`, whose
+    backward is the two products of the resize's matrices: the library's
+    backward adds with atomics on CUDA, in no fixed order."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.in_size = tuple(x.shape[-2:])
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ih, iw), (oh, ow) = ctx.in_size, g.shape[-2:]
+        ah = _bilinear_matrix(ih, oh, g.dtype, g.device)
+        aw = _bilinear_matrix(iw, ow, g.dtype, g.device)
+        return ah.t() @ g @ aw, None
 
 
 class _ConvBlock(nn.Module):
@@ -97,23 +156,23 @@ class PanopticHead(nn.Module):
     def forward(self, rgb):  # f32[H,W,3] in [0,1] (or [B,H,W,3])
         batched = rgb.dim() == 4
         x = (rgb if batched else rgb[None]).permute(0, 3, 1, 2)
-        e1 = self.blocks[0](x)
-        e2 = self.blocks[1](e1)
-        e3 = self.blocks[2](e2)
-        e4 = self.blocks[3](e3)
-        m = self.blocks[4](e4)
 
         def up(x, skip, block):
-            x = F.interpolate(x, size=skip.shape[-2:], mode="bilinear",
-                              align_corners=False)
+            x = _Upsample.apply(x, tuple(skip.shape[-2:]))
             return block(torch.cat([x, skip], dim=1))
 
-        d3 = up(m, e3, self.blocks[5])
-        d2 = up(d3, e2, self.blocks[6])
-        d1 = up(d2, e1, self.blocks[7])
-        sem = self.sem(d1).permute(0, 2, 3, 1)
-        center = self.center(d1)[:, 0]
-        offset = self.offset(d1).permute(0, 2, 3, 1)
+        with _without_cudnn():
+            e1 = self.blocks[0](x)
+            e2 = self.blocks[1](e1)
+            e3 = self.blocks[2](e2)
+            e4 = self.blocks[3](e3)
+            m = self.blocks[4](e4)
+            d3 = up(m, e3, self.blocks[5])
+            d2 = up(d3, e2, self.blocks[6])
+            d1 = up(d2, e1, self.blocks[7])
+            sem = self.sem(d1).permute(0, 2, 3, 1)
+            center = self.center(d1)[:, 0]
+            offset = self.offset(d1).permute(0, 2, 3, 1)
         if not batched:
             sem, center, offset = sem[0], center[0], offset[0]
         return sem, center, offset
@@ -221,3 +280,125 @@ def load_pretrained(path: str | None = None, device=None) -> PanopticHead:
     model = PanopticHead(meta["num_classes"], meta["width"])
     model.load_state_dict(seghead_from_flax(arrays))
     return model.to(dev).eval()
+
+
+def save_pretrained(path, model: PanopticHead) -> None:
+    """The head's parameters as the reference's ``save_pretrained`` writes
+    them: flax key paths (``jax.tree_util.keystr``), HWIO kernels, float16,
+    ``np.savez_compressed``; the reference's ``load_pretrained`` reads it."""
+    from instancefusion_tpu_torch.convert import seghead_to_flax
+
+    arrays = seghead_to_flax(model.state_dict())
+    np.savez_compressed(path, **{k: v.astype(np.float16) for k, v in arrays.items()})
+
+
+# --------------------------------------------------------------------------
+# Training
+# --------------------------------------------------------------------------
+
+# flax's lecun_normal: a normal truncated at two standard deviations, scaled
+# so that its variance is 1 / fan_in (the truncation's std is 0.8796...).
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_params(height: int, width_px: int, num_classes: int, width: int = 32,
+                generator: torch.Generator | None = None, device=None) -> PanopticHead:
+    """A fresh head with flax's initializers: conv kernels ``lecun_normal``
+    (truncated normal, stddev sqrt(1 / fan_in) / 0.8796, cut at +-2 stddev),
+    conv biases 0, GroupNorm scale 1 and bias 0.  Draws come from
+    `generator` (a CPU ``torch.Generator``) layer by layer; the head is
+    then moved to `device` (``cuda`` unless asked otherwise).  `height` and
+    `width_px` are the reference's dummy input size: the head's parameters
+    do not depend on them."""
+    del height, width_px
+    dev = _device.resolve(device)
+    model = PanopticHead(num_classes, width)
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, nn.Conv2d):
+                fan_in = module.in_channels * module.kernel_size[0] * module.kernel_size[1]
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                nn.init.trunc_normal_(module.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+                nn.init.zeros_(module.bias)
+            elif isinstance(module, nn.GroupNorm):
+                nn.init.ones_(module.weight)
+                nn.init.zeros_(module.bias)
+    return model.to(dev)
+
+
+def targets_from_instances(instance_img: torch.Tensor, class_of_instance: torch.Tensor,
+                           sigma: float = 4.0):
+    """Panoptic-DeepLab training targets from instance-id ground truth.
+
+    instance_img i32[H, W] (-1 none), class_of_instance i32[K] (0 is
+    background).  Returns (sem i64[H, W], center f32[H, W], offset
+    f32[H, W, 2]): the class of each pixel, a Gaussian bump of `sigma` px at
+    each instance's centroid, and each pixel's vector to its instance's
+    centroid in units of the IMAGE WIDTH (so one head serves several input
+    sizes).  Centroids are summed in float64."""
+    h, w = instance_img.shape
+    k = class_of_instance.shape[0]
+    dev = instance_img.device
+    inst = instance_img.long()
+    valid = inst >= 0
+    ids = inst.clamp(0, k - 1)
+    sem = torch.where(valid, class_of_instance.long()[ids], torch.zeros_like(ids))
+
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    onehot = F.one_hot(torch.where(valid, inst, torch.full_like(inst, k)), k + 1)[..., :k]
+    oh64 = onehot.double()
+    count = oh64.sum((0, 1))
+    denom = count.clamp(min=1.0)
+    cy = ((oh64 * yy.double()[..., None]).sum((0, 1)) / denom).float()
+    cx = ((oh64 * xx.double()[..., None]).sum((0, 1)) / denom).float()
+
+    d2 = (yy[..., None] - cy) ** 2 + (xx[..., None] - cx) ** 2
+    bump = torch.exp(-d2 / (2.0 * sigma * sigma))
+    bump = torch.where(count[None, None, :] > 0, bump, torch.zeros_like(bump))
+    center = bump.amax(-1) if k > 0 else torch.zeros((h, w), device=dev)
+
+    ohf = onehot.float()
+    off_y = ((ohf * cy).sum(-1) - yy) / w
+    off_x = ((ohf * cx).sum(-1) - xx) / w
+    offset = torch.where(valid[..., None], torch.stack([off_y, off_x], -1),
+                         torch.zeros((h, w, 2), device=dev))
+    return sem, center, offset
+
+
+def loss_fn(model: PanopticHead, rgb, sem_t, center_t, offset_t,
+            center_weight: float = 10.0, offset_weight: float = 30.0):
+    """Semantic cross-entropy + center MSE (on the sigmoid) + offset L1 over
+    the foreground.  Returns (total, {"ce", "center", "offset"})."""
+    sem, center, offset = model(rgb)
+    ce = -torch.gather(F.log_softmax(sem, dim=-1), -1, sem_t.long()[..., None]).mean()
+    cm = ((torch.sigmoid(center) - center_t) ** 2).mean()
+    fg = (sem_t > 0).float()[..., None]
+    ol = (torch.abs(offset - offset_t) * fg).sum() / fg.sum().clamp(min=1.0)
+    total = ce + center_weight * cm + offset_weight * ol
+    return total, {"ce": ce, "center": cm, "offset": ol}
+
+
+def train_step(model: PanopticHead, optimizer: torch.optim.Optimizer, rgb, targets):
+    """One update of `optimizer` on one frame (or a batch) and its targets
+    (sem, center, offset).  Returns the loss and its parts, detached."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    total, aux = loss_fn(model, rgb, *targets)
+    with _without_cudnn():
+        total.backward()
+    optimizer.step()
+    return total.detach(), {k: v.detach() for k, v in aux.items()}
+
+
+def cosine_decay(lr: float, steps: int, alpha: float = 0.0):
+    """``optax.cosine_decay_schedule(lr, steps, alpha)`` as a function of the
+    update count: lr ((1 - alpha) (1 + cos(pi min(t, steps) / steps)) / 2
+    + alpha).  As a ``LambdaLR`` factor it gives these rates exactly on an
+    optimizer whose ``lr`` is 1."""
+    def rate(t: int) -> float:
+        decay = 0.5 * (1.0 + math.cos(math.pi * min(t, steps) / steps))
+        return lr * ((1.0 - alpha) * decay + alpha)
+
+    return rate

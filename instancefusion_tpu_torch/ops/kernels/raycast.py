@@ -7,6 +7,12 @@ surfaces win (see ``csrc/raycast.cu``).  ``finish_splat_images`` turns the
 planes into a depth/validity/color prediction.  CUDA tensors launch the
 kernel; CPU tensors run ``splat_planes_ref``.  ``splat_planes.launches``
 counts kernel launches, ``splat_planes.launches_color`` those with color.
+
+The kernel sums with no float atomics: a first pass writes each listed
+block's votes, in voxel order, and the box of pixels their taps reach
+(``footprint_boxes``); a second pass gives each 16x16 screen tile
+(``TILE``) one CUDA block that walks the blocks whose box meets it in list
+order (``tile_counts``), so a run repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -28,15 +34,12 @@ _ZREF = 2.0
 _DEN_TAU = 0.05
 # Tent radius (px) of a block at depth z: clip(_TENT * fx * voxel / z, 1, rmax).
 _TENT = 0.7
-# Shared-memory tile budget of one K5 block: a block whose footprint box
-# holds at most this many bytes of planes sums its taps on chip.  With the
-# 16 KB voting list of a 512-voxel block with color, two blocks fit an
-# H100 SM's 228 KB.
-SPLAT_TILE_BYTES = 96 * 1024
+# Edge (px) of the kernel's screen tiles: one CUDA block per tile.
+TILE = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "ifl_splat": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_F] * 11 + [_I, _P, _P],
+    "ifl_splat": [_P, _P, _I] + [_P] * 5 + [_I] * 4 + [_F] * 11 + [_P] * 4,
 }
 
 
@@ -74,8 +77,8 @@ def _tent_k(intr: Intrinsics, cfg) -> float:
 
 
 def _block_terms(coords, T_cw, intr: Intrinsics, cfg, rmax: int):
-    """Per-block (straddles-the-camera-plane, tent radius, corners' screen
-    box (umin, vmin, umax, vmax)) from its corners and its center depth."""
+    """Per block (straddles-the-camera-plane, tent radius) from its corners'
+    depths and its center depth."""
     bsz = cfg.block_size * cfg.voxel_size
 
     def world(offsets):  # block-grid offsets (..., 3) -> world points
@@ -85,45 +88,56 @@ def _block_terms(coords, T_cw, intr: Intrinsics, cfg, rmax: int):
     bits = torch.arange(8, device=coords.device)
     corner = world(torch.stack([bits // 4, (bits // 2) % 2, bits % 2], -1).float())
     zc8 = cam_row(corner, T_cw, 2)
-    u8 = intr.fx * cam_row(corner, T_cw, 0) / zc8 + intr.cx
-    v8 = intr.fy * cam_row(corner, T_cw, 1) / zc8 + intr.cy
-    box = torch.stack([u8.amin(1), v8.amin(1), u8.amax(1), v8.amax(1)], -1)
     zc = cam_row(world(torch.full((1, 3), 0.5, device=coords.device)), T_cw, 2)[:, 0]
     # A number over a tensor is its reciprocal times the number in PyTorch.
     r_t = torch.clamp(torch.reciprocal(torch.clamp(zc, min=0.3)) * _tent_k(intr, cfg),
                       1.0, float(rmax))
-    return torch.amin(zc8, dim=1) <= 1e-3, r_t, box
+    return torch.amin(zc8, dim=1) <= 1e-3, r_t
 
 
-def footprint_boxes(slots, slot_valid, block_coords, T_wc, intr: Intrinsics, cfg,
-                    rmax: int):
-    """K5's footprint box of each listed block, as the kernel computes it:
-    the screen box of the block's 8 projected corners widened by
-    ceil(r_t) + 1 px and clipped to the image.  Returns (box i64[K, 4] as
-    x0, y0, x1, y1 inclusive, kept bool[K]: valid and not straddling the
-    camera plane); a box with x0 > x1 or y0 > y1 lies off the image."""
+def footprint_boxes(slots, slot_valid, block_coords, sdf, weight, T_wc,
+                    intr: Intrinsics, cfg, rmax: int):
+    """K5's box of each listed block, as its first pass computes it: the box
+    of the rounded pixel centers of the block's votes, widened by the tap
+    radius min(ceil(r_t) + 1, rmax) and clipped to the image.  Returns (box
+    i64[K, 4] as x0, y0, x1, y1 inclusive, kept bool[K]: valid and not
+    straddling the camera plane); a block with no vote on the image has
+    x0 > x1."""
     rows = torch.where(slot_valid, slots, torch.zeros_like(slots)).long()
-    straddle, r_t, box = _block_terms(block_coords[rows], se3_inverse(T_wc), intr, cfg,
-                                      rmax)
-    pad = torch.ceil(r_t) + 1.0
-    lo = torch.clamp(torch.floor(box[:, :2]) - pad[:, None], min=0.0)
-    hi = torch.ceil(box[:, 2:]) + pad[:, None]
+    coords = block_coords[rows]
+    T_cw = se3_inverse(T_wc)
+    straddle, r_t = _block_terms(coords, T_cw, intr, cfg, rmax)
+    kept = slot_valid & ~straddle
+    u, v, w, *_ = _vote_terms(coords, sdf[rows], weight[rows], None, T_cw, intr, cfg,
+                              False)
+    vote = (w > 0.0) & kept[:, None]
+    reach = torch.clamp(torch.ceil(r_t) + 1.0, max=float(rmax))
+    inf = torch.full_like(u, float("inf"))
+    ui, vi = torch.round(u), torch.round(v)
+    lo = torch.stack([torch.where(vote, ui, inf).amin(1), torch.where(vote, vi, inf).amin(1)],
+                     -1) - reach[:, None]
+    hi = torch.stack([torch.where(vote, ui, -inf).amax(1),
+                      torch.where(vote, vi, -inf).amax(1)], -1) + reach[:, None]
+    lo = torch.clamp(lo, min=0.0)
     hi = torch.stack([torch.clamp(hi[:, 0], max=intr.width - 1.0),
                       torch.clamp(hi[:, 1], max=intr.height - 1.0)], -1)
-    return torch.cat([lo, hi], 1).long(), slot_valid & ~straddle
+    box = torch.cat([lo, hi], 1)
+    empty = ~vote.any(1) | (box[:, 0] > box[:, 2]) | (box[:, 1] > box[:, 3])
+    box = torch.where(empty[:, None], torch.tensor([1.0, 1.0, 0.0, 0.0], device=box.device),
+                      box)
+    return box.long(), kept
 
 
-def splat_routes(slots, slot_valid, block_coords, T_wc, intr: Intrinsics, cfg,
-                 with_color: bool, rmax: int) -> dict:
-    """How many listed blocks K5 sums on the shared-memory tile ("tile":
-    footprint box within ``SPLAT_TILE_BYTES``), how many straight into the
-    global planes ("global"), and how many it drops ("dropped": straddling
-    the camera plane)."""
-    box, kept = footprint_boxes(slots, slot_valid, block_coords, T_wc, intr, cfg, rmax)
-    w, h = box[:, 2] - box[:, 0] + 1, box[:, 3] - box[:, 1] + 1
-    fits = (w > 0) & (h > 0) & (w * h * (6 if with_color else 3) * 4 <= SPLAT_TILE_BYTES)
-    return {"tile": int((kept & fits).sum()), "global": int((kept & ~fits).sum()),
-            "dropped": int((slot_valid & ~kept).sum())}
+def tile_counts(box, intr: Intrinsics) -> torch.Tensor:
+    """How many of the boxes (``footprint_boxes``) meet each ``TILE`` x
+    ``TILE`` screen tile: i64[tiles_y, tiles_x], the blocks the kernel's
+    second pass walks there."""
+    ty = torch.arange(0, intr.height, TILE, device=box.device)
+    tx = torch.arange(0, intr.width, TILE, device=box.device)
+    some = ((box[:, 0] <= box[:, 2]) & (box[:, 1] <= box[:, 3]))[:, None]
+    meets_y = (box[:, 1, None] <= ty + TILE - 1) & (box[:, 3, None] >= ty) & some
+    meets_x = (box[:, 0, None] <= tx + TILE - 1) & (box[:, 2, None] >= tx)
+    return (meets_y[:, :, None] & meets_x[:, None, :]).sum(0)
 
 
 def splat_taps_ref(slots, slot_valid, block_coords, sdf, weight, color,
@@ -138,7 +152,7 @@ def splat_taps_ref(slots, slot_valid, block_coords, sdf, weight, color,
     rows = torch.where(slot_valid, slots, torch.zeros_like(slots)).long()
     coords = block_coords[rows]
     T_cw = se3_inverse(T_wc)
-    straddle, r_t, _ = _block_terms(coords, T_cw, intr, cfg, rmax)
+    straddle, r_t = _block_terms(coords, T_cw, intr, cfg, rmax)
     keep = slot_valid & ~straddle
     u, v, w, sm, d_abs, cols = _vote_terms(
         coords, sdf[rows], weight[rows], color[rows] if with_color else None,
@@ -234,19 +248,20 @@ def splat_planes(slots, slot_valid, block_coords, sdf, weight, color, T_wc,
     _build.check_tensors(tensors, dev)
     if slots.dtype != torch.int32 or block_coords.dtype != torch.int32:
         raise ValueError("slots and block_coords must be int32")
-    if cfg.block_size**3 > 1024:
-        raise ValueError("the splat kernel takes blocks of at most 1024 voxels")
+    nch = 6 if with_color else 3
+    k, b3 = slots.shape[0], cfg.block_size**3
     T_cw = se3_inverse(T_wc).contiguous()
-    acc = torch.zeros((6 if with_color else 3, intr.height, intr.width),
-                      dtype=torch.float32, device=dev)
+    votes = torch.empty((k, (2 + nch) * b3), dtype=torch.float32, device=dev)
+    meta = torch.empty((k, 8), dtype=torch.int32, device=dev)
+    acc = torch.empty((nch, intr.height, intr.width), dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _lib().ifl_splat(
-        p(slots), p(slot_valid), slots.shape[0], p(block_coords), p(sdf),
+        p(slots), p(slot_valid), k, p(block_coords), p(sdf),
         p(weight), p(color) if with_color else None, p(T_cw),
         intr.width, intr.height, cfg.block_size, rmax,
         intr.fx, intr.fy, intr.cx, intr.cy, cfg.voxel_size, cfg.trunc,
         *cfg.origin, cfg.block_size * cfg.voxel_size, _tent_k(intr, cfg),
-        SPLAT_TILE_BYTES, p(acc), _build.stream_handle(),
+        p(votes), p(meta), p(acc), _build.stream_handle(),
     )
     _build.check(err, "splat_planes")
     splat_planes.launches += 1

@@ -264,10 +264,11 @@ def _look_at(eye, center, rng, jitter):
 
 def test_splat_taps_lie_in_footprint_box():
     """For random blocks and poses, every tap that the plain splat yields
-    for a block lies inside the footprint box that K5 computes for it
-    (``footprint_boxes``, the kernel's corners-plus-radius box), at
-    rmax = 8; straddling blocks yield no tap.  The box decides whether K5
-    sums the block on its shared-memory tile (``splat_routes``)."""
+    for a block lies inside the box that K5's first pass computes for it
+    (``footprint_boxes``: its votes' rounded centers widened by the tap
+    radius), at rmax = 8; straddling blocks yield no tap.  The box decides
+    which screen tiles walk the block (``tile_counts``), so a tap outside
+    it would be lost."""
     from instancefusion_tpu_torch.ops.kernels import raycast as kray
 
     rng = np.random.default_rng(0)
@@ -280,17 +281,18 @@ def test_splat_taps_lie_in_footprint_box():
     bsz = PCFG.block_size * PCFG.voxel_size
     centers = (n(coords) + 0.5) * bsz + np.asarray(PCFG.origin)
     slots = torch.arange(n_blocks, dtype=torch.int32)
-    checked, routes = 0, {"tile": 0, "global": 0, "dropped": 0}
+    ones = torch.ones(n_blocks, dtype=torch.bool)
+    checked, kept_n, dropped_n, spans = 0, 0, 0, []
     for trial in range(5):
         target = centers[rng.integers(n_blocks)]
         direction = rng.normal(size=3)
         eye = target + rng.uniform(0.3, 3.0) * direction / np.linalg.norm(direction)
         T_wc = t(_look_at(eye, target, rng, 0.4))
-        box, kept = kray.footprint_boxes(slots, torch.ones(n_blocks, dtype=torch.bool),
-                                         coords, T_wc, PINTR, PCFG, 8)
-        for name, count in kray.splat_routes(slots, torch.ones(n_blocks, dtype=torch.bool),
-                                             coords, T_wc, PINTR, PCFG, True, 8).items():
-            routes[name] += count
+        box, kept = kray.footprint_boxes(slots, ones, coords, sdf, weight, T_wc, PINTR,
+                                         PCFG, 8)
+        counts = kray.tile_counts(box, PINTR)
+        kept_n += int(kept.sum())
+        dropped_n += int((~kept).sum())
         for i in range(n_blocks):
             flat = torch.cat([f for f, _ in kray.splat_taps_ref(
                 slots[i:i + 1], torch.ones(1, dtype=torch.bool), coords, sdf, weight,
@@ -302,5 +304,14 @@ def test_splat_taps_lie_in_footprint_box():
             x0, y0, x1, y1 = n(box[i]).tolist()
             assert bool(((px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)).all()), (trial, i)
             checked += flat.numel()
+            if flat.numel():
+                # The tiles that meet the box.
+                spans.append((x1 // kray.TILE - x0 // kray.TILE + 1)
+                             * (y1 // kray.TILE - y0 // kray.TILE + 1))
+        assert int(counts.sum()) == sum(
+            (int(b[2]) // kray.TILE - int(b[0]) // kray.TILE + 1)
+            * (int(b[3]) // kray.TILE - int(b[1]) // kray.TILE + 1)
+            for b in box if int(b[0]) <= int(b[2]))
     assert checked > 20000
-    assert routes["tile"] > 0 and routes["global"] > 0 and routes["dropped"] > 0, routes
+    assert kept_n > 0 and dropped_n > 0, (kept_n, dropped_n)
+    assert min(spans) >= 1 and max(spans) > 4, spans

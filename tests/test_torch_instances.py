@@ -117,6 +117,29 @@ def test_find_and_apply_merges_on_double_overlap():
     assert float(rt.score[int(rdst[0])]) == 4.5
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_apply_merges_into_one_row_matches_reference(seed):
+    """Several rows folded into one destination in one call (the sums that
+    ``_add_rows`` orders on CUDA) and a dropped entry: the table equals the
+    reference's bit for bit on the CPU."""
+    cfg = InstanceConfig(max_instances=8)
+    n_rows = jinst.allocate(cfg).active.shape[0]
+    rng = np.random.default_rng(seed)
+    table = jinst.allocate(cfg)._replace(
+        active=jnp.asarray(np.ones(n_rows, bool)),
+        cls=jnp.asarray(rng.integers(1, 5, n_rows).astype(np.int32)),
+        score=jnp.asarray(rng.uniform(0.1, 10.0, n_rows).astype(np.float32)),
+        matches=jnp.asarray(rng.integers(1, 9, n_rows).astype(np.int32)),
+        age=jnp.asarray(rng.integers(0, 50, n_rows).astype(np.int32)))
+    k = cfg.max_instances
+    src = np.array([1, 2, 3, 4, 6, 0, 0, 0], np.int32)[:k]
+    dst = np.array([0, 0, 0, 5, 5, 0, 0, 0], np.int32)[:k]
+    ok = np.array([True, True, True, True, False, False, False, False])[:k]
+    rt = jinst.apply_merges(table, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(ok))
+    pt = pinst.apply_merges(_port_table(table), t(src), t(dst), t(ok))
+    assert_tables_equal(pt, rt)
+
+
 def test_retire_stale_matches_reference(frames):
     jseg, pseg = _both_segs(gt_segmentation(frames[0], ICFG.max_instances))
     _, table = jinst.associate(jinst.allocate(ICFG), jseg,

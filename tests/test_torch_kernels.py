@@ -282,8 +282,9 @@ def test_integrate_kernel_replays_in_cuda_graph(run, with_color):
 
 
 def test_splat_kernel_matches_plain(run):
-    """Valid sets within 1%, depth within 1e-3 m where both are valid: float
-    atomics sum in no fixed order."""
+    """Valid sets within 1%, depth within 1e-3 m where both are valid: the
+    kernel sums each pixel in (list, voxel) order, the plain version row
+    offset first."""
     state, frame, _ = run
     vol, slots, valid, d0 = _slot_list(state, frame)
     args = (slots, valid, vol.block_coords, vol.sdf, vol.weight, vol.color,
@@ -303,13 +304,17 @@ def test_splat_kernel_matches_plain(run):
 @pytest.mark.parametrize("with_color", [False, True])
 def test_splat_kernel_matches_plain_rmax8(run, with_color):
     """K5 (and K5color) at rmax = 8, the bench's radius, on a slot list
-    that puts blocks on both routes (shared-memory tile and global): valid
-    sets within 1%, depth and color within 1e-3 where both are valid."""
+    whose blocks' boxes span from one screen tile to many (the tiles' walk
+    of ``tile_counts``): valid sets within 1%, depth and color within 1e-3
+    where both are valid."""
     state, frame, _ = run
     vol, slots, valid, d0 = _slot_list(state, frame)
-    routes = kray.splat_routes(slots, valid, vol.block_coords, frame.T_wc, CFG.intrinsics,
-                               CFG.tsdf, with_color, 8)
-    assert routes["tile"] > 0 and routes["global"] > 0, routes
+    box, kept = kray.footprint_boxes(slots, valid, vol.block_coords, vol.sdf, vol.weight,
+                                     frame.T_wc, CFG.intrinsics, CFG.tsdf, 8)
+    some = kept & (box[:, 0] <= box[:, 2])
+    spans = ((box[:, 2] // kray.TILE - box[:, 0] // kray.TILE + 1)
+             * (box[:, 3] // kray.TILE - box[:, 1] // kray.TILE + 1))[some]
+    assert int(spans.min()) <= 2 and int(spans.max()) >= 9, spans
     args = (slots, valid, vol.block_coords, vol.sdf, vol.weight, vol.color,
             frame.T_wc, CFG.intrinsics, CFG.tsdf)
     before = kray.splat_planes.launches_color
@@ -322,6 +327,22 @@ def test_splat_kernel_matches_plain_rmax8(run, with_color):
     both = vk & vr
     assert (ik.depth - ir.depth)[both].abs().max().item() < 1e-3
     assert (ik.color - ir.color)[both].abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("with_color", [False, True])
+def test_splat_kernel_repeats_bit_for_bit(run, with_color):
+    """Two K5 calls on the same inputs give the same planes bit for bit (no
+    float atomics), and a list with no valid entry gives zero planes."""
+    state, frame, _ = run
+    vol, slots, valid, _ = _slot_list(state, frame)
+    args = (slots, valid, vol.block_coords, vol.sdf, vol.weight, vol.color,
+            frame.T_wc, CFG.intrinsics, CFG.tsdf, with_color, 8)
+    first = kray.splat_planes(*args)
+    for _ in range(3):
+        assert torch.equal(kray.splat_planes(*args), first)
+    assert float(first[2].sum()) > 0.0
+    none = kray.splat_planes(slots, torch.zeros_like(valid), *args[2:])
+    assert not bool(none.any())
 
 
 @pytest.mark.parametrize("radius", [1, 2, 4, 5, 8])

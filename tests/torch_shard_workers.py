@@ -275,3 +275,32 @@ def cli_main(argv):
     from instancefusion_tpu_torch import cli
 
     return cli.main(argv)
+
+
+def _head(state, num_classes, width):
+    from instancefusion_tpu_torch.models.segmentation import PanopticHead
+
+    model = PanopticHead(num_classes, width)
+    model.load_state_dict({k: _t(v) for k, v in state.items()})
+    return model.eval()
+
+
+def dp_segment(state, num_classes, width, rgb, k):
+    """``models.parallel.dp_segment_fn`` on the batch `rgb` (B, H, W, 3)."""
+    from instancefusion_tpu_torch.models import parallel
+
+    fn = parallel.dp_segment_fn(mesh.current(), k)
+    return _np(fn(_head(state, num_classes, width), _t(rgb)))
+
+
+def tp_segment(state, num_classes, width, rgb, k):
+    """``models.parallel.tp_segment_fn`` on one frame; also which parameters
+    split and the shapes this rank keeps of them."""
+    from instancefusion_tpu_torch.models import parallel
+
+    g = mesh.current()
+    model = _head(state, num_classes, width)
+    shard_params, fn = parallel.tp_segment_fn(g, k)
+    head = shard_params(model)
+    kept = {name: tuple(p.shape) for name, p in head.named_parameters()}
+    return _np(fn(head, _t(rgb))), parallel.tp_param_shardings(model, g), kept
