@@ -54,10 +54,12 @@ card and the CUDA toolkit.  It imports nothing of JAX or of
    launch; K4 on a depth-only and a color frame and K7, each bit-equal to
    its plain version on every voxel of the valid rows with every other row
    untouched, each call one device launch and no other device op; K5 with
-   color, its screen-tile walk and a bit-identical second call, K6, and K8
-   (timed with the L2 flushed before each call) on the march path's last state
-   and the next frame's association, with and without color, among them;
-   no kernel may launch while a plain version is timed);
+   color, its screen-tile walk and a bit-identical second call, K6 (one
+   device launch a call and a bit-identical second call), and K8 (bit-equal to its plain version with and
+   without color, timed with the L2 flushed before each call, its bound
+   counted from the bytes the plain run must move) on the march path's last
+   state and the next frame's association, among them; no kernel may launch
+   while a plain version is timed);
 10. the packaged segmentation head at 640x480 on the card, held against the
    same head on the CPU: outputs, the grouping of the same outputs, and the
    whole segmentation on frames whose grouping does not hinge on tied
@@ -199,10 +201,12 @@ VOTE_FLOPS_PER_VOXEL = 40
 # Per-voxel fp32 operations of K8's running average: weights 4, sdf blend 5,
 # clamp 1, color denominator 3, three color blends of 4.
 TSDF_UPDATE_FLOPS_PER_VOXEL = 25
-# Bytes K8 must move: psi and w_obs read for every listed voxel (8); where
-# w_obs > 0, sdf and weight read and written (16) and, with color, three
-# color floats read and written and three observations read (36).
-TSDF_UPDATE_OBS_BYTES, TSDF_UPDATE_PAYLOAD_BYTES, TSDF_UPDATE_COLOR_BYTES = 8, 16, 36
+# K8's bytes as the earlier bound counted them, printed beside the count of
+# what it must move: psi and w_obs of every listed voxel (8); where w_obs >
+# 0, sdf and weight read and written (16) and three color floats read and
+# written and three observations read (36).  It missed the valid voxels
+# that w_obs = 0 rewrites (tsdf_update_record counts them from the plain run).
+TSDF_UPDATE_OBSERVED_ONLY_BYTES = (8, 52)
 WARMUP, TIMED, CHUNK = 3, 30, 6
 PER_FRAME = {"K1": 1, "K2": 9, "K3": 9, "K4": 1, "K5": 1}
 # The photometric path: 9 association rounds with the rgb planes and 3
@@ -279,7 +283,7 @@ DEVICE_KERNELS = {"K1": ("preprocess_kernel",), "K2": ("associate_kernel",),
                   "K4": ("integrate_kernel",), "K4color": ("integrate_kernel",),
                   "K5": ("splat_votes_kernel", "splat_tiles_kernel"),
                   "K5color": ("splat_votes_kernel", "splat_tiles_kernel"),
-                  "K6": ("ne_reduce_kernel", "ne_finish_kernel"),
+                  "K6": ("ne_kernel",),
                   "K7": ("label_vote_kernel",), "K8": ("tsdf_update_kernel",),
                   "K2loop": ("associate_kernel",), "K3loop": ("gn_kernel",)}
 NAMES = {"K1": "fused_preprocess", "K2": "associate_gather",
@@ -917,6 +921,18 @@ def gn_times(k, args, kw):
     return out
 
 
+def ne_times(call):
+    """``kernel_times`` of K6; fails unless every call is one device launch
+    and no other device op, and a second call gives the same bits as the
+    first."""
+    first, second = call(), call()
+    check(all(torch.equal(a, b) for a, b in zip(first, second)),
+          "K6: a second call differs from the first")
+    out = kernel_times("K6", call, 200)
+    check_one_op("K6", out)
+    return out
+
+
 def gn_steps_note(times) -> str:
     return "call/device ms by inner_n: " + ", ".join(
         f"{m}: {t[0]!r}/{t[1]!r}" for m, t in times.items()) + " (one device launch a call)"
@@ -1164,13 +1180,14 @@ def rgb_kernel_phase(cfg, state, frame, last, launches):
     n_mask = float(mask.sum())
     recs.append(record(
         "K6", launches, max(errs),
-        kernel_times("K6", lambda: kicp.normal_equations(p_w, n_k, q_k, mask, delta), 200),
+        ne_times(lambda: kicp.normal_equations(p_w, n_k, q_k, mask, delta)),
         plain_time_ms(lambda: kicp.normal_equations_ref(p_w, n_k, q_k, mask, delta), 50),
         n * 40 + 44 * 4, NE_FLOPS_PER_PIXEL * n_mask,
         time_ms(lambda: torch.mm(A.T, A), 200),
         f"N={n}, {n_mask} masked, huber {delta}; H/b/inliers/res max err {errs}; "
         f"tolerance: H and b rtol/atol 2e-3 (another summation order), inliers exact, "
-        f"residual sum rtol 1e-3; library = one torch.mm of the precomputed (N, 7) "
+        f"residual sum rtol 1e-3; one device launch a call and a second call "
+        f"bit-identical; library = one torch.mm of the precomputed (N, 7) "
         f"[J sqrt(w), -r sqrt(w)] by itself (27 of the 29 sums); 0 launches a frame: "
         f"no per-frame path runs it",
     ))
@@ -1203,7 +1220,10 @@ def touched_counts(cfg, frames, states_T):
 def tsdf_update_record(cfg, state, frame, launches):
     """K8 against its plain version on the march path's last state and the
     next frame's association (touched blocks, allocated, listed), on cloned
-    planes, with color and depth only."""
+    planes, with color and depth only: bit for bit on the listed rows, every
+    other row unchanged.  The bound counts what the plain run with color
+    must move: psi, w_obs, sdf, weight and color of every valid voxel, the
+    observations of the observed ones, and the floats it changed."""
     from instancefusion_tpu_torch.ops import blocks, preprocess
     from instancefusion_tpu_torch.ops.kernels import tsdf as ktsdf
 
@@ -1218,6 +1238,7 @@ def tsdf_update_record(cfg, state, frame, launches):
     rows[slots[valid].long()] = True
     n_valid, b3 = int(valid.sum()), tcfg.block_size ** 3
     before = (vol.sdf.clone(), vol.weight.clone(), vol.color.clone())
+    bits = [x.view(torch.int32) for x in before]
     errs, notes = [], []
     for with_color in (True, False):
         psi, w_obs, obs = blocks.touched_observations(
@@ -1227,40 +1248,46 @@ def tsdf_update_record(cfg, state, frame, launches):
         maps_r = [x.clone() for x in before]
         ktsdf.tsdf_update(*maps_k, *args)
         ktsdf.tsdf_update_ref(*maps_r, *args)
-        for name, a, b, rtol, atol in zip(("sdf", "weight", "color"), maps_k, maps_r,
-                                          (1e-5, 1e-6, 1e-5), (1e-6, 0.0, 1e-6)):
+        for name, a, b in zip(("sdf", "weight", "color"), maps_k, maps_r):
             errs.append((a[rows] - b[rows]).abs().max().item())
-            check(torch.allclose(a[rows], b[rows], rtol=rtol, atol=atol),
-                  f"K8 {name} (color {with_color}) differs from its plain version by "
-                  f"{errs[-1]} (rtol {rtol}, atol {atol})")
+            n_diff = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            check(n_diff == 0, f"K8 {name} (color {with_color}) differs from its plain "
+                  f"version on {n_diff} floats (max abs {errs[-1]}): not bit for bit")
         for name, a, b in zip(("sdf", "weight", "color"), maps_k, before):
             check(torch.equal(a[~rows], b[~rows]),
                   f"K8 (color {with_color}) changed {name} rows it was not given")
         if not with_color:
             check(torch.equal(maps_k[2], before[2]), "K8 without color changed color")
         fused = int((w_obs[valid] > 0).sum())
-        notes.append(f"color {with_color}: {fused} voxels observed, sdf/weight/color max "
-                     f"err {errs[-3:]}")
+        changed = [int((r.view(torch.int32)[rows] != b[rows]).sum())
+                   for r, b in zip(maps_r, bits)]
+        notes.append(f"color {with_color}: {fused} voxels observed, sdf/weight/color "
+                     f"floats changed {changed}, bit-equal to the plain version")
         if with_color:
             bench = [x.clone() for x in before]
             warm = kernel_times("K8", lambda: ktsdf.tsdf_update(*bench, *args), 200)
             times = kernel_times("K8", lambda: ktsdf.tsdf_update(*bench, *args), 200,
                                  between=l2_flush())
             plain_ms = plain_time_ms(lambda: ktsdf.tsdf_update_ref(*bench, *args), 20)
-            n_obs = fused
-    n_touched = int(touched.sum())
+            n_obs, n_changed = fused, sum(changed)
+    n_touched, n_vox = int(touched.sum()), n_valid * b3
+    # Floats read: psi, w_obs, sdf, weight and 3 color of every valid voxel,
+    # 3 observations of each observed one; written: those that changed.
+    must_bytes = 4 * (7 * n_vox + 3 * n_obs + n_changed)
+    per_vox, per_obs = TSDF_UPDATE_OBSERVED_ONLY_BYTES
+    earlier_bytes = per_vox * n_vox + per_obs * n_obs
     return record(
-        "K8", launches, max(errs), times, plain_ms,
-        TSDF_UPDATE_OBS_BYTES * n_valid * b3
-        + (TSDF_UPDATE_PAYLOAD_BYTES + TSDF_UPDATE_COLOR_BYTES) * n_obs,
-        TSDF_UPDATE_FLOPS_PER_VOXEL * n_obs, None,
+        "K8", launches, max(errs), times, plain_ms, must_bytes,
+        TSDF_UPDATE_FLOPS_PER_VOXEL * n_vox, None,
         f"K={k} listed, {n_touched} blocks touched, {n_valid} valid rows x {b3} voxels; "
-        f"{'; '.join(notes)}; tolerance: sdf and color rtol 1e-5 atol 1e-6, weight rtol "
-        f"1e-6 (tests/test_pallas.py:95-104), rows not listed bit-identical; timed with "
-        f"color and the L2 flushed before each call (warm, the same buffers back to "
-        f"back: call {warm[0]!r} ms, device {warm[1]!r} ms); bound: psi and w_obs of "
-        f"every listed voxel, the payload of the {n_obs} observed ones; library: none "
-        f"(no single PyTorch call)",
+        f"{'; '.join(notes)}; tolerance: bit for bit on the listed rows, rows not "
+        f"listed unchanged; timed with color and the L2 flushed before each call (warm, "
+        f"the same buffers back to back: call {warm[0]!r} ms, device {warm[1]!r} ms); "
+        f"bound: {must_bytes} bytes that the function must move (7 floats of each of "
+        f"{n_vox} valid voxels read, 3 observations of the {n_obs} observed, "
+        f"{n_changed} floats written); the earlier count, the payload of the observed "
+        f"voxels only: {earlier_bytes} bytes, {bound_ms(earlier_bytes, 0)[0]!r} ms; "
+        f"library: none (no single PyTorch call)",
     )
 
 

@@ -1,5 +1,5 @@
 // Device helpers shared by the kernels of icp.cu (K2), raycast.cu (K5),
-// tsdf.cu (K4) and labels.cu (K7).
+// tsdf.cu (K4, K8) and labels.cu (K7).
 //
 // A kernel that places a point on a pixel must round as its plain PyTorch
 // version does, or a 1-ulp difference picks the neighbouring pixel at a .5
@@ -104,27 +104,34 @@ __device__ __forceinline__ void store4_if_changed(float* p, const float (&old)[4
   if (!same) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// The persistent walk over a slot list (K4, K7).  Block g of a grid of G
-// takes the entries g, g + G, g + 2G, ...  kThreads entries at a time it
-// reads their valid flags (one a thread), compacts the valid ones by a
-// warp ballot and a prefix over the warps into shared memory with their
-// slot and block coordinates, and then calls row(slot, bx, by, bz) once
-// for each, with every thread of the block.  An invalid entry costs one
-// byte read; round robin spreads a valid prefix, and a list with holes,
-// evenly over the grid.
-template <int kThreads, class Row>
-__device__ __forceinline__ void walk_valid_rows(
-    const int32_t* __restrict__ slots, const uint8_t* __restrict__ valid, int k,
-    const int32_t* __restrict__ block_coords, Row&& row) {
+// The persistent walk over a slot list (K4, K7, K8).  Block g of a grid of
+// G takes the entries g, g + G, g + 2G, ...  kThreads entries at a time it
+// reads their valid flags and slots (one entry a thread; the slot loads
+// beside the flag, so a cold list costs one round trip to memory, not
+// two), compacts the valid ones by a warp ballot and a prefix over the
+// warps into shared memory, each as the Entry that fetch(e, slot) makes of
+// list position e, and then calls row(entry) once for each, in list
+// order, with every thread of the block.  An invalid entry costs five
+// bytes read (its flag and slot); round robin spreads a valid prefix, and a
+// list with holes, evenly over the grid.
+template <int kThreads, class Entry, class Fetch, class Row>
+__device__ __forceinline__ void walk_valid(const int32_t* __restrict__ slots,
+                                           const uint8_t* __restrict__ valid,
+                                           int k, Fetch&& fetch, Row&& row) {
   static_assert(kThreads % 32 == 0, "whole warps");
   constexpr int kWarps = kThreads / 32;
   __shared__ int warp_count[kWarps];
-  __shared__ int4 rows[kThreads];
+  __shared__ Entry rows[kThreads];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long step = (long long)gridDim.x * kThreads;
   for (long long base = blockIdx.x; base < k; base += step) {
     const long long e = base + (long long)gridDim.x * tid;
-    const bool v = e < k && valid[e];
+    bool v = false;
+    int slot = 0;
+    if (e < k) {
+      v = valid[e];
+      slot = slots[e];
+    }
     const unsigned m = __ballot_sync(0xffffffffu, v);
     if (lane == 0) warp_count[warp] = __popc(m);
     __syncthreads();
@@ -134,19 +141,37 @@ __device__ __forceinline__ void walk_valid_rows(
       off += w < warp ? warp_count[w] : 0;
       n += warp_count[w];
     }
-    if (v) {
-      const long long slot = slots[e];
-      rows[off + __popc(m & ((1u << lane) - 1u))] =
-          make_int4((int)slot, block_coords[3 * slot], block_coords[3 * slot + 1],
-                    block_coords[3 * slot + 2]);
-    }
+    if (v) rows[off + __popc(m & ((1u << lane) - 1u))] = fetch((int)e, slot);
     __syncthreads();
-    for (int r = 0; r < n; ++r) {
-      const int4 q = rows[r];
-      row(q.x, q.y, q.z, q.w);
-    }
+    for (int r = 0; r < n; ++r) row(rows[r]);
     __syncthreads();  // rows and warp_count are rewritten by the next pass
   }
+}
+
+// The walk with each valid entry's slot and block coordinates (K4, K7):
+// row(slot, bx, by, bz).
+template <int kThreads, class Row>
+__device__ __forceinline__ void walk_valid_rows(
+    const int32_t* __restrict__ slots, const uint8_t* __restrict__ valid, int k,
+    const int32_t* __restrict__ block_coords, Row&& row) {
+  walk_valid<kThreads, int4>(
+      slots, valid, k,
+      [&](int, int slot) {
+        const long long c = 3 * (long long)slot;
+        return make_int4(slot, block_coords[c], block_coords[c + 1], block_coords[c + 2]);
+      },
+      [&](const int4& q) { row(q.x, q.y, q.z, q.w); });
+}
+
+// The walk with each valid entry's list position and slot (K8, whose
+// observation rows are laid out by list position): row(e, slot).
+template <int kThreads, class Row>
+__device__ __forceinline__ void walk_valid_slots(const int32_t* __restrict__ slots,
+                                                 const uint8_t* __restrict__ valid,
+                                                 int k, Row&& row) {
+  walk_valid<kThreads, int2>(
+      slots, valid, k, [](int e, int slot) { return make_int2(e, slot); },
+      [&](const int2& q) { row(q.x, q.y); });
 }
 
 // The blocks of `kernel` (kThreads threads, no dynamic shared memory) that

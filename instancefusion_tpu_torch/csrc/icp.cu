@@ -57,11 +57,21 @@
 // K6 replaces instancefusion_tpu/ops/pallas/icp.py:reduce_normal_equations
 // (_kernel): the same 29 sums for given world points, target points and
 // normals and a float mask (w = mask x Huber weight), without the gate,
-// pose or solve.  ne_reduce runs K3's per-pixel accumulation
-// (accumulate_point_to_plane, shared) over K3's grid into K3's partials
-// workspace, and a one-block ne_finish adds the partials with K3's
-// fixed-order fp64 tree (sum_rows) and writes H (6x6, symmetric), b, the
-// inlier sum and sum |r| w.  Bound: bytes (40 B a pixel read once).
+// pose or solve.  One launch (ne_kernel): each thread accumulates K3's
+// per-pixel terms (accumulate_point_to_plane, shared) over a grid-stride
+// slice of pixels, two pixels a turn with both pixels' loads issued first,
+// the mask a factor and not a branch (a masked pixel adds zeros), and each
+// block writes its 29 sums as one row of partials (block_sums_to_row).
+// Then the block fences its row and draws an integer ticket from a counter;
+// the block that draws the last one adds every row with K3's fixed-order
+// fp64 tree (sum_rows) and writes H (6x6, symmetric), b, the inlier sum
+// and sum |r| w; atomicInc wraps the counter back to 0 on that last
+// ticket, for the next launch (or a CUDA-graph replay).  The ticket decides
+// which block finishes, never the order of a sum, so the result repeats
+// from run to run; unlike K3, no block waits for another, so the grid
+// need not be resident.  The grid is 2 blocks an SM (ops/kernels/icp.py),
+// several pixels a thread at level 0.  Bound: bytes (40 B a pixel read
+// once).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -474,30 +484,62 @@ __global__ void __launch_bounds__(kReduceThreads, kBlocksPerSm)
   }
 }
 
+// The ten floats of pixel i that K6 reads: p, n, q and the mask.
+__device__ __forceinline__ void load_ne_pixel(const float* __restrict__ p,
+                                              const float* __restrict__ nt,
+                                              const float* __restrict__ q,
+                                              const float* __restrict__ mask, int i,
+                                              float (&x)[10]) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    x[c] = p[3 * i + c];
+    x[3 + c] = nt[3 * i + c];
+    x[6 + c] = q[3 * i + c];
+  }
+  x[9] = mask[i];
+}
+
+__device__ __forceinline__ void accumulate_ne_pixel(float* acc, const float (&x)[10],
+                                                    float huber_delta) {
+  accumulate_point_to_plane(acc, x[0], x[1], x[2], x[3], x[4], x[5], x[6], x[7],
+                            x[8], x[9], huber_delta);
+}
+
+// partials holds gridDim.x rows; ticket is 0 at the launch and again after
+// (atomicInc wraps it to 0 on the last ticket).
 __global__ void __launch_bounds__(kReduceThreads)
-    ne_reduce_kernel(const float* __restrict__ p, const float* __restrict__ nt,
-                     const float* __restrict__ q,
-                     const float* __restrict__ mask, int n, float huber_delta,
-                     float* __restrict__ partials) {
+    ne_kernel(const float* __restrict__ p, const float* __restrict__ nt,
+              const float* __restrict__ q, const float* __restrict__ mask,
+              int n, float huber_delta, float* partials,
+              unsigned int* ticket, float* __restrict__ out) {
   float acc[kSums];
 #pragma unroll
   for (int k = 0; k < kSums; ++k) acc[k] = 0.0f;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const float m = mask[i];
-    if (m == 0.0f) continue;
-    accumulate_point_to_plane(acc, p[3 * i], p[3 * i + 1], p[3 * i + 2],
-                              nt[3 * i], nt[3 * i + 1], nt[3 * i + 2],
-                              q[3 * i], q[3 * i + 1], q[3 * i + 2], m,
-                              huber_delta);
+  const int stride = gridDim.x * blockDim.x;
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  for (; i < n - stride; i += 2 * stride) {
+    float x0[10], x1[10];
+    load_ne_pixel(p, nt, q, mask, i, x0);
+    load_ne_pixel(p, nt, q, mask, i + stride, x1);
+    accumulate_ne_pixel(acc, x0, huber_delta);
+    accumulate_ne_pixel(acc, x1, huber_delta);
+  }
+  if (i < n) {
+    float x0[10];
+    load_ne_pixel(p, nt, q, mask, i, x0);
+    accumulate_ne_pixel(acc, x0, huber_delta);
   }
   block_sums_to_row<kSums>(acc, partials + blockIdx.x * kRow);
-}
 
-__global__ void __launch_bounds__(kReduceThreads)
-    ne_finish_kernel(const float* partials, int nblocks, float* __restrict__ out) {
+  // Publish the row, then draw a ticket: the last block sees every row.
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicInc(ticket, gridDim.x - 1u) == gridDim.x - 1u;
+  __syncthreads();
+  if (!last) return;
   __shared__ double sums[kSums];
-  sum_rows<kSums>(partials, nblocks, sums);
+  sum_rows<kSums>(partials, gridDim.x, sums);
   const int k = threadIdx.x;
   if (k < 21) {  // k-th upper-triangle entry (a, b) of H and its mirror
     int a = 0, base = 0;
@@ -587,16 +629,14 @@ extern "C" int ifl_gn_iterations(const float* sv, const float* sn,
   return (int)cudaGetLastError();
 }
 
-// partials holds at least nblocks rows of kRow floats.
+// partials holds at least nblocks rows of kRow floats; ticket is one
+// counter, 0 between launches (ne_kernel leaves it so).
 extern "C" int ifl_normal_equations(const float* p, const float* nt,
                                     const float* q, const float* mask, int n,
                                     float huber_delta, float* partials,
-                                    int nblocks, float* out, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  ne_reduce_kernel<<<nblocks, kReduceThreads, 0, s>>>(p, nt, q, mask, n,
-                                                      huber_delta, partials);
-  int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  ne_finish_kernel<<<1, kReduceThreads, 0, s>>>(partials, nblocks, out);
+                                    unsigned int* ticket, int nblocks,
+                                    float* out, void* stream) {
+  ne_kernel<<<nblocks, kReduceThreads, 0, (cudaStream_t)stream>>>(
+      p, nt, q, mask, n, huber_delta, partials, ticket, out);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,7 @@
 //
 // The design is K4's (tsdf.cu): a persistent grid walking the list
 // (common.cuh walk_valid_rows; the list is 8192 long at 512^3, a few
-// hundred of its entries valid, and an invalid one costs a byte read),
+// hundred of its entries valid, and an invalid one costs five bytes read),
 // T_cw formed in the block from T_wc, 128 threads a block with 4 voxels of
 // one z-run each, and one rounding per operation in the plain version's
 // order, so the kernel equals ops/kernels/labels.label_vote_ref bit for

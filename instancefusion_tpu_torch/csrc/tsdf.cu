@@ -15,7 +15,7 @@
 // - A persistent grid: the blocks the card holds at once (resident_grid,
 //   asked once a device by the wrapper), each walking the list entries
 //   congruent to its index (common.cuh walk_valid_rows).  An invalid entry
-//   costs a byte read, not a scheduled block; valid rows are unique
+//   costs five bytes read, not a scheduled block; valid rows are unique
 //   (prefix-sum compaction), so no two threads write one voxel.
 // - The block forms T_cw from T_wc once (se3_inverse_entry), in shared
 //   memory: the wrapper runs no op before the launch.
@@ -45,18 +45,35 @@
 // whose observations (psi, w_obs, packed color obs) were computed outside
 // the kernel, as the touched-block integrate of the block map does.  The
 // TPU kernel took gathered rows in 64-row tiles and left the scatter back
-// to XLA; here one thread per voxel of a listed slot reads the payload row
-// in place and writes it back, and entries whose valid flag is false are
-// never read or written (their slot holds 0, a real block).  A null color
-// pointer updates sdf and weight only (depth-only frames, maps without
-// color).  Arithmetic follows _update_kernel: products by the reciprocal of
-// the clamped weight.
+// to XLA; here the payload rows are read and written in place.  The
+// design, K4's list walk without the projection:
 //
-// K8's bound: bytes.  Per voxel of a valid row: sdf and weight read and written
-// (16 B), psi and w_obs read (8 B), and with color three payload floats read
-// and written and three observations read (36 B); about 25 flops.
-// Consecutive threads touch consecutive floats of each row and of each
-// observation row.
+// - A persistent grid (resident_grid, asked once a device by the wrapper)
+//   walks the valid list entries (common.cuh walk_valid_slots): entries
+//   whose valid flag is false (their slot holds 0, a real block) cost
+//   their flag and slot and are never read or written, and no thread
+//   divides.
+// - 128 threads a block, one float4 quad of a row each (a 512-voxel row is
+//   one pass).  The observation rows are indexed by list position, the
+//   payload by slot.  Every load of the quad (sdf, weight, psi, w_obs and,
+//   with color, the three color and observation segments) is issued before
+//   any arithmetic, and sdf, weight and each color segment are written back
+//   only where a value changed bit for bit (store4_if_changed).
+// - Arithmetic: one rounding per operation in tsdf_update_ref's order
+//   (__fmul_rn, __fadd_rn, a correctly rounded reciprocal __frcp_rn for
+//   1 / max(w, 1e-6), as PyTorch's eager reciprocal), and clamps that
+//   keep a NaN as torch.clamp does, so the kernel equals the plain version
+//   bit for bit.
+//
+// Every valid voxel is read, also where w_obs is 0: the plain version and
+// the reference rewrite sdf as (s w_old) (1 / w_old) there, which is not
+// always s, and each color segment likewise.  A null color pointer updates
+// sdf and weight only (depth-only frames, maps without color).
+//
+// K8's bound: bytes.  Per voxel of a valid row psi, w_obs, sdf and weight
+// are read (16 B) and, with color, the three color floats (12 B); the
+// three observations only where w_obs > 0 (12 B); the floats whose value
+// changed are written.  About 25 flops a voxel.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -155,50 +172,92 @@ __global__ void __launch_bounds__(kIntegrateThreads, kIntegrateMinBlocks)
       });
 }
 
-__global__ void tsdf_update_kernel(
-    const int32_t* __restrict__ slots, const uint8_t* __restrict__ valid,
-    long long n, int b3, float* __restrict__ sdf, float* __restrict__ weight,
-    float* __restrict__ color, const float* __restrict__ psi,
-    const float* __restrict__ w_obs, const float* __restrict__ obs,
-    float max_weight, float color_gain) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long k = i / b3;
-  if (!valid[k]) return;
-  const int v = (int)(i - k * b3);
-  const long long slot = slots[k];
-  const long long row = slot * b3 + v;
-  const float w_old = weight[row];
-  const float wo = w_obs[i];
-  const float w_new = w_old + wo;
-  const float inv = 1.0f / fmaxf(w_new, 1e-6f);
-  if (w_new > 0.0f) sdf[row] = (sdf[row] * w_old + psi[i] * wo) * inv;
-  weight[row] = fminf(w_new, max_weight);
-  if (color != nullptr) {
-    const float wc = color_gain * wo;
-    const float inv_c = 1.0f / fmaxf(w_old + wc, 1e-6f);
-    for (int c = 0; c < 3; ++c) {
-      const long long crow = slot * 3 * b3 + (long long)c * b3 + v;
-      const float o = obs[k * 3 * b3 + (long long)c * b3 + v];
-      color[crow] = (color[crow] * w_old + o * wc) * inv_c;
+constexpr int kUpdateThreads = 128;
+
+// max(w, 1e-6) and min(w, cap) that keep a NaN, as torch.clamp does.
+__device__ __forceinline__ float clamp_min(float w, float lo) { return w < lo ? lo : w; }
+__device__ __forceinline__ float clamp_max(float w, float hi) { return w > hi ? hi : w; }
+
+__global__ void __launch_bounds__(kUpdateThreads)
+    tsdf_update_kernel(const int32_t* __restrict__ slots,
+                       const uint8_t* __restrict__ valid, int k, int b3,
+                       float* __restrict__ sdf, float* __restrict__ weight,
+                       float* __restrict__ color, const float* __restrict__ psi,
+                       const float* __restrict__ w_obs,
+                       const float* __restrict__ obs, float max_weight,
+                       float color_gain) {
+  walk_valid_slots<kUpdateThreads>(slots, valid, k, [&](int e, int slot) {
+    for (int q = threadIdx.x; q < b3 / 4; q += kUpdateThreads) {
+      const int v0 = 4 * q;
+      const long long row = (long long)slot * b3 + v0;
+      const long long orow = (long long)e * b3 + v0;
+      const long long crow = 3 * (long long)slot * b3 + v0;
+      const long long corow = 3 * (long long)e * b3 + v0;
+      float s_old[4], w_old[4], ps[4], wo[4], c_old[3][4], o[3][4];
+      load4(sdf + row, s_old);
+      load4(weight + row, w_old);
+      load4(psi + orow, ps);
+      load4(w_obs + orow, wo);
+      if (color != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          load4(color + crow + c * b3, c_old[c]);
+          load4(obs + corow + c * b3, o[c]);
+        }
+      }
+      float s_new[4], w_new[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float w_sum = __fadd_rn(w_old[j], wo[j]);
+        const float inv = __frcp_rn(clamp_min(w_sum, 1e-6f));
+        s_new[j] = w_sum > 0.0f
+                       ? __fmul_rn(__fadd_rn(__fmul_rn(s_old[j], w_old[j]),
+                                             __fmul_rn(ps[j], wo[j])),
+                                   inv)
+                       : s_old[j];
+        w_new[j] = clamp_max(w_sum, max_weight);
+      }
+      store4_if_changed(sdf + row, s_old, s_new);
+      store4_if_changed(weight + row, w_old, w_new);
+      if (color == nullptr) continue;
+      float wc[4], inv_c[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wc[j] = __fmul_rn(color_gain, wo[j]);
+        inv_c[j] = __frcp_rn(clamp_min(__fadd_rn(w_old[j], wc[j]), 1e-6f));
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float c_new[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          c_new[j] = __fmul_rn(__fadd_rn(__fmul_rn(c_old[c][j], w_old[j]),
+                                         __fmul_rn(o[c][j], wc[j])),
+                               inv_c[j]);
+        store4_if_changed(color + crow + c * b3, c_old[c], c_new);
+      }
     }
-  }
+  });
 }
 
 }  // namespace
 
+// K8's grid on the current device (the blocks it holds at once).
+extern "C" int ifl_tsdf_update_grid(int* nblocks) {
+  return resident_grid(tsdf_update_kernel, kUpdateThreads, nblocks);
+}
+
+// grid blocks walk the k list entries; b3 must be a multiple of 4 and every
+// row 16-byte aligned.  A null color leaves color as it is and obs unread.
 extern "C" int ifl_tsdf_update(const int32_t* slots, const uint8_t* valid,
-                               int k, int b3, float* sdf, float* weight,
-                               float* color, const float* psi,
+                               int k, int grid, int b3, float* sdf,
+                               float* weight, float* color, const float* psi,
                                const float* w_obs, const float* obs,
                                float max_weight, float color_gain,
                                void* stream) {
   if (k == 0) return 0;
-  const long long n = (long long)k * b3;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  tsdf_update_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      slots, valid, n, b3, sdf, weight, color, psi, w_obs, obs, max_weight,
+  tsdf_update_kernel<<<grid, kUpdateThreads, 0, (cudaStream_t)stream>>>(
+      slots, valid, k, b3, sdf, weight, color, psi, w_obs, obs, max_weight,
       color_gain);
   return (int)cudaGetLastError();
 }

@@ -147,12 +147,13 @@ def check_tensors(tensors: dict, device) -> None:
             raise ValueError(f"{name} must be a contiguous tensor on {device}")
 
 
-def check_quads(block_size: int, *rows) -> None:
-    """Raise unless a block's voxels split into z-runs of 4 and each of
-    ``rows`` starts 16-byte aligned: K4 and K7 move 4 voxels a thread as
-    one 16-byte access."""
-    if block_size % 4:
-        raise ValueError(f"block_size {block_size} is not a multiple of 4")
+def check_quads(n: int, *rows) -> None:
+    """Raise unless ``n`` (the block edge of K4 and K7, whose voxels split
+    into z-runs of 4, or the row length of K8) is a multiple of 4 and each
+    of ``rows`` starts 16-byte aligned: the kernels move 4 voxels a thread
+    as one 16-byte access."""
+    if n % 4:
+        raise ValueError(f"block_size or row length {n} is not a multiple of 4")
     for t in rows:
         if t.data_ptr() % 16:
             raise ValueError("payload rows must start 16-byte aligned")

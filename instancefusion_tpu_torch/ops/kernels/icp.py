@@ -32,7 +32,7 @@ _SIGNATURES = {
                      + [_I] * 4 + [_P, _P],
     "ifl_gn_grid": [_P],
     "ifl_gn_iterations": [_P] * 11 + [_I, _P, _P, _I, _P, _I] + [_F] * 8 + [_P],
-    "ifl_normal_equations": [_P] * 4 + [_I, _F, _P, _I, _P, _P],
+    "ifl_normal_equations": [_P] * 4 + [_I, _F, _P, _P, _I, _P, _P],
 }
 
 
@@ -40,22 +40,36 @@ def _lib():
     return _build.load("icp", _SIGNATURES)
 
 
-# Per device: (K3's grid, the partials workspace of 2 x grid rows).
+_THREADS = 256  # threads a block of K3 and K6 (csrc/icp.cu kReduceThreads)
+_NE_BLOCKS_PER_SM = 2  # K6's grid at most, in blocks an SM
+
+
+class _Workspace(NamedTuple):
+    gn_grid: int  # K3's grid: the blocks the card holds at once (ifl_gn_grid)
+    ne_grid: int  # K6's grid at most: _NE_BLOCKS_PER_SM blocks an SM
+    partials: torch.Tensor  # f32[rows, _ROW]: K3's step-parity double buffer, K6's rows
+    ticket: torch.Tensor  # i32[1]: K6's last-block counter, 0 between launches
+
+
 _WORKSPACE: dict = {}
 
 
-def _workspace(dev) -> tuple[int, torch.Tensor]:
-    """K3's grid on ``dev`` (``ifl_gn_grid``: the blocks the card holds at
-    once) and the partials workspace that K3 and K6 share there: 2 x grid
-    rows of ``_ROW`` floats, K3's step-parity double buffer.  Made once a
-    device; the kernels use it in stream order."""
+def _workspace(dev) -> _Workspace:
+    """K3's and K6's grids on ``dev``, the partials workspace that K3 and
+    K6 share there (2 x K3's grid rows of ``_ROW`` floats; K3's grid is at
+    least one block an SM, so K6's fits) and K6's ticket counter, which
+    never lies in the partials.  Made once a device (the counter zeroed
+    then); the kernels use them in stream order."""
     ws = _WORKSPACE.get(dev)
     if ws is None:
         grid = ctypes.c_int(0)
         with torch.cuda.device(dev):
             _build.check(_lib().ifl_gn_grid(ctypes.byref(grid)), "gn_grid")
-        ws = _WORKSPACE[dev] = (grid.value, torch.empty(
-            (2 * grid.value, _ROW), dtype=torch.float32, device=dev))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ws = _WORKSPACE[dev] = _Workspace(
+            grid.value, _NE_BLOCKS_PER_SM * sms,
+            torch.empty((2 * grid.value, _ROW), dtype=torch.float32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
     return ws
 
 
@@ -225,19 +239,25 @@ def normal_equations(p_w, n_t, q_w, mask, huber_delta: float):
     """K6: the normal equations of one linearization on fixed correspondences.
 
     p_w, n_t, q_w: f32[N, 3]; mask: f32[N].  Returns (H f32[6, 6], b f32[6],
-    inliers f32[], sum |r| w f32[]), on the device of the inputs.
+    inliers f32[], sum |r| w f32[]), on the device of the inputs: on the
+    card one launch, the same bits from run to run, views of one
+    allocation.
     """
     if p_w.device.type == "cpu":
         return normal_equations_ref(p_w, n_t, q_w, mask, huber_delta)
     _check_f32(p_w=p_w, n_t=n_t, q_w=q_w, mask=mask)
     _build.check_tensors(dict(p_w=p_w, n_t=n_t, q_w=q_w, mask=mask), p_w.device)
     dev = p_w.device
-    grid, partials = _workspace(dev)
+    n = p_w.shape[0]
+    if n_t.shape != (n, 3) or q_w.shape != (n, 3) or mask.shape != (n,):
+        raise ValueError("normal_equations takes p_w, n_t, q_w (N, 3) and mask (N,)")
+    ws = _workspace(dev)
+    grid = max(1, min(ws.ne_grid, -(-n // _THREADS)))
     out = torch.empty((_NE_OUT,), dtype=torch.float32, device=dev)
     p = _build.ptr
     err = _lib().ifl_normal_equations(
-        p(p_w), p(n_t), p(q_w), p(mask), p_w.shape[0], huber_delta, p(partials),
-        grid, p(out), _build.stream_handle(),
+        p(p_w), p(n_t), p(q_w), p(mask), n, huber_delta, p(ws.partials),
+        p(ws.ticket), grid, p(out), _build.stream_handle(),
     )
     _build.check(err, "normal_equations")
     normal_equations.launches += 1
@@ -366,14 +386,14 @@ def gn_iterations(src_v, src_n, q_w, n_t, gate, T_init, *, inner_n,
         tensors.update(planes)
     _check_f32(**tensors)
     _build.check_tensors(tensors, dev)
-    grid, partials = _workspace(dev)
+    ws = _workspace(dev)
     out = torch.empty((_GN_OUT,), dtype=torch.float32, device=dev)
     p = _build.ptr
     rgb_ptrs = [p(x) for x in rgb] + [p(T_pred_cw)] if rgb is not None else [None] * 6
     fx, fy = rgb_intr if rgb is not None else (0.0, 0.0)
     err = _lib().ifl_gn_iterations(
         p(src_v), p(src_n), p(q_w), p(n_t), p(gate), *rgb_ptrs, src_v.shape[0],
-        p(T_init), p(partials), grid, p(out), inner_n, dist_thresh,
+        p(T_init), p(ws.partials), ws.gn_grid, p(out), inner_n, dist_thresh,
         angle_thresh, huber_delta, damping, float(min_valid), fx, fy,
         rgb_weight if rgb is not None else 0.0, _build.stream_handle(),
     )

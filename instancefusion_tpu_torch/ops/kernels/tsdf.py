@@ -25,7 +25,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "ifl_integrate_grid": [_P],
     "ifl_integrate": [_P, _P, _I, _I] + [_P] * 7 + [_I] * 3 + [_F] * 11 + [_P],
-    "ifl_tsdf_update": [_P, _P, _I, _I] + [_P] * 6 + [_F, _F, _P],
+    "ifl_tsdf_update_grid": [_P],
+    "ifl_tsdf_update": [_P, _P, _I, _I, _I] + [_P] * 6 + [_F, _F, _P],
 }
 
 
@@ -155,6 +156,9 @@ def tsdf_update_ref(sdf, weight, color, slots, valid, psi, w_obs, obs,
     nothing was ever fused); weight = min(w_new, max_weight); with ``obs``,
     each packed color segment = (c w_old + obs color_gain w_obs) /
     max(w_old + color_gain w_obs, 1e-6), all as products by the reciprocal.
+    Every voxel of a valid row is rewritten, also where w_obs is 0: there
+    sdf becomes (sdf w_old) (1 / w_old), which is not always sdf.  Each
+    operation is one eager op, rounded once: K8 repeats them bit for bit.
     """
     rows = slots[valid].long()  # valid slots are unique
     w_old, wo = weight[rows], w_obs[valid]
@@ -181,7 +185,9 @@ def tsdf_update(sdf, weight, color, slots, valid, psi, w_obs, obs,
     sdf, weight f32[C, B^3]; color f32[C, 3 B^3] (packed [r | g | b]);
     slots i32[K] with valid bool[K] (valid slots unique; invalid entries are
     never written); psi, w_obs f32[K, B^3] and obs f32[K, 3 B^3] or None
-    (depth only: color is left as it is).
+    (depth only: color is left as it is).  On the card one launch and no
+    other device op; B^3 must be a multiple of 4 and every row 16-byte
+    aligned.
     """
     if sdf.device.type == "cpu":
         tsdf_update_ref(sdf, weight, color, slots, valid, psi, w_obs, obs,
@@ -202,9 +208,11 @@ def tsdf_update(sdf, weight, color, slots, valid, psi, w_obs, obs,
         raise ValueError("tsdf_update: observation and payload shapes disagree")
     if obs is not None and (obs.shape != (k, 3 * b3) or color.shape[1] != 3 * b3):
         raise ValueError("tsdf_update: color rows must be (., 3 B^3)")
+    _build.check_quads(b3, *(t for n, t in tensors.items() if n not in ("slots", "valid")))
     p = _build.ptr
+    grid = _build.resident_grid(_lib(), "ifl_tsdf_update_grid", dev)
     err = _lib().ifl_tsdf_update(
-        p(slots), p(valid), k, b3, p(sdf), p(weight),
+        p(slots), p(valid), k, min(grid, k), b3, p(sdf), p(weight),
         p(color) if obs is not None else None, p(psi), p(w_obs),
         p(obs) if obs is not None else None, max_weight, color_gain,
         _build.stream_handle(),

@@ -594,24 +594,85 @@ def test_gn_kernel_replays_in_cuda_graph(request, with_rgb):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("huber_delta", [0.0, 0.02])
-def test_normal_equations_kernel_matches_plain(rgb_run, huber_delta):
-    """H and b within rtol/atol 2e-3 (another summation order), inliers
-    exact, residual sum within rtol 1e-3."""
+def _ne_inputs(rgb_run):
+    """K6's p_w, n_t, q_w and mask at level 0 of the photometric path's
+    next frame, associated with its prediction."""
     state, frame, _ = rgb_run
     src, _, _, gargs = _rgb_inputs(state, frame)
     q, n_t, ok, _, _ = kicp.associate_gather(*gargs)
     p_w = (src["vmap"].reshape(-1, 3) @ state.T_wc[:3, :3].T + state.T_wc[:3, 3]).contiguous()
     mask = (src["valid"].reshape(-1) & ok & ((p_w - q).norm(dim=-1) < 0.1)).float()
+    return p_w, n_t, q, mask
+
+
+def _assert_ne_close(out, ref):
+    """H and b within rtol/atol 2e-3 (another summation order), inliers
+    exact, residual sum within rtol 1e-3."""
+    for a, b in zip(out[:2], ref[:2]):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
+    assert float(out[2]) == float(ref[2])
+    torch.testing.assert_close(out[3], ref[3], rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.parametrize("huber_delta", [0.0, 0.02])
+def test_normal_equations_kernel_matches_plain(rgb_run, huber_delta):
+    """H and b within rtol/atol 2e-3 (another summation order), inliers
+    exact, residual sum within rtol 1e-3."""
+    p_w, n_t, q, mask = _ne_inputs(rgb_run)
     before = kicp.normal_equations.launches
     out = kicp.normal_equations(p_w, n_t, q, mask, huber_delta)
     ref = kicp.normal_equations_ref(p_w, n_t, q, mask, huber_delta)
     assert kicp.normal_equations.launches == before + 1
     assert float(ref[2]) > 5000
-    for a, b in zip(out[:2], ref[:2]):
-        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-3)
-    assert float(out[2]) == float(ref[2])
-    torch.testing.assert_close(out[3], ref[3], rtol=1e-3, atol=0.0)
+    _assert_ne_close(out, ref)
+
+
+def test_normal_equations_kernel_is_one_launch(rgb_run):
+    """A K6 call is one device launch of ne_kernel and no other device op:
+    the last block to finish adds the partials."""
+    p_w, n_t, q, mask = _ne_inputs(rgb_run)
+    _assert_one_launch(_device_ops(lambda: kicp.normal_equations(p_w, n_t, q, mask, 0.02)),
+                       "ne_kernel")
+
+
+def test_normal_equations_kernel_repeats_bit_for_bit(rgb_run):
+    """Two calls give the same bits: the ticket picks the block that adds
+    the rows, never their order, and is back at 0 after a call."""
+    p_w, n_t, q, mask = _ne_inputs(rgb_run)
+    first = kicp.normal_equations(p_w, n_t, q, mask, 0.02)
+    second = kicp.normal_equations(p_w, n_t, q, mask, 0.02)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    _assert_ne_close(first, kicp.normal_equations_ref(p_w, n_t, q, mask, 0.02))
+
+
+def test_normal_equations_kernel_replays_in_cuda_graph(rgb_run):
+    """One K6 call captured in a CUDA graph and replayed, and an eager call
+    after the replay, equal the first eager call bit for bit: each launch
+    leaves the ticket at 0."""
+    p_w, n_t, q, mask = _ne_inputs(rgb_run)
+    eager = kicp.normal_equations(p_w, n_t, q, mask, 0.02)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = kicp.normal_equations(p_w, n_t, q, mask, 0.02)
+    for x in captured:
+        x.fill_(float("nan"))
+    graph.replay()
+    after = kicp.normal_equations(p_w, n_t, q, mask, 0.02)
+    torch.cuda.synchronize()
+    for a, b, c in zip(eager, captured, after):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n", [1, 300, 5000])
+def test_normal_equations_kernel_small_n(rgb_run, n):
+    """N = 1 and N below the grid's threads (one block a 256 pixels): the
+    plain version's sums within its tolerances."""
+    p_w, n_t, q, mask = (x[:n].contiguous() for x in _ne_inputs(rgb_run))
+    mask[0] = 1.0
+    _assert_ne_close(kicp.normal_equations(p_w, n_t, q, mask, 0.02),
+                     kicp.normal_equations_ref(p_w, n_t, q, mask, 0.02))
 
 
 def test_plain_versions_launch_nothing(rgb_run):
@@ -685,11 +746,9 @@ def test_march_path_launches(march_run):
                         "K5": 0, "K6": 0, "K7": 0, "K8": 4}
 
 
-@pytest.mark.parametrize("with_color", [True, False])
-def test_tsdf_update_kernel_matches_plain(march_run, with_color):
-    """On the next frame's touched list: the listed rows within sdf and
-    color rtol 1e-5 atol 1e-6, weight rtol 1e-6 (tests/test_pallas.py's
-    bounds); every other row, and color without color, bit-identical."""
+def _update_case(march_run, with_color):
+    """The next frame's touched list on the march path's state: the map,
+    K8's arguments and the listed rows."""
     state, frame, _, _ = march_run
     touched = blocks.touched_blocks_mask(frame.depth, frame.T_wc, CFG.intrinsics, CFG.tsdf)
     vol = blocks.allocate_touched(state.volume, touched, CFG.tsdf)
@@ -698,23 +757,91 @@ def test_tsdf_update_kernel_matches_plain(march_run, with_color):
     psi, w_obs, obs = blocks.touched_observations(
         vol, slots, valid, frame.depth, frame.color if with_color else None, frame.T_wc,
         CFG.intrinsics, CFG.tsdf)
-    maps_k = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
-    maps_r = [x.clone() for x in maps_k]
-    args = (slots, valid, psi, w_obs, obs, CFG.tsdf.max_weight)
-    before = ktsdf.tsdf_update.launches
+    return vol, (slots, valid, psi, w_obs, obs, CFG.tsdf.max_weight), slots[valid].long()
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_tsdf_update_kernel_matches_plain(march_run, with_color):
+    """On the next frame's touched list: sdf, weight and color bit-equal to
+    the plain version on every voxel; every other row, and color without
+    color, untouched."""
+    vol, args, rows = _update_case(march_run, with_color)
+    before = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
+    maps_k = [x.clone() for x in before]
+    maps_r = [x.clone() for x in before]
+    launches = ktsdf.tsdf_update.launches
     ktsdf.tsdf_update(*maps_k, *args)
     ktsdf.tsdf_update_ref(*maps_r, *args)
-    assert ktsdf.tsdf_update.launches == before + 1
-    rows = torch.zeros(vol.sdf.shape[0], dtype=torch.bool, device="cuda")
-    rows[slots[valid].long()] = True
-    assert int(rows.sum()) > 50 and not torch.equal(maps_k[1], vol.weight)
-    torch.testing.assert_close(maps_k[0], maps_r[0], rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(maps_k[1], maps_r[1], rtol=1e-6, atol=0.0)
-    torch.testing.assert_close(maps_k[2], maps_r[2], rtol=1e-5, atol=1e-6)
-    for a, b in zip(maps_k, (vol.sdf, vol.weight, vol.color)):
-        assert torch.equal(a[~rows], b[~rows])
+    assert ktsdf.tsdf_update.launches == launches + 1
+    assert rows.numel() > 50 and not torch.equal(maps_k[1], before[1])
+    for out_k, out_r, b in zip(maps_k, maps_r, before):
+        _assert_bit_equal(out_k, out_r, b, rows)
     if not with_color:
-        assert torch.equal(maps_k[2], vol.color)
+        assert torch.equal(maps_k[2], before[2])
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+@pytest.mark.parametrize("kind", LISTS)
+def test_tsdf_update_kernel_matches_plain_on_random_rows(with_color, kind):
+    """Rows made from a seed, weights fractional over (0, 70) beside 0 and
+    the clamp, w_obs 0, 1 and fractional, color gain 4: bit-equal to the
+    plain version, so the kernel's __frcp_rn equals PyTorch's reciprocal,
+    on each list shape; rows outside the valid set stay untouched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only on the GPU")
+    rng = np.random.default_rng(12)
+    c, k = 300, 200
+    weight = rng.uniform(0.0, 70.0, (c, 512)).astype(np.float32)
+    weight[:, :64] = 0.0
+    weight[:, 64:128] = 64.0
+    slots = torch.from_numpy(rng.permutation(c)[:k].astype(np.int32)).cuda()
+    valid = torch.from_numpy(rng.random(k) < 0.6).cuda()
+    slots, valid = _relist(slots, valid, kind)
+    k = slots.numel()
+    w_obs = rng.choice(np.float32([0.0, 0.0, 1.0, 0.37]), (k, 512))
+    planes = [torch.from_numpy(x).cuda() for x in (
+        rng.uniform(-1, 1, (c, 512)).astype(np.float32), weight,
+        rng.uniform(0, 1, (c, 1536)).astype(np.float32))]
+    obs = torch.from_numpy(rng.uniform(0, 1, (k, 1536)).astype(np.float32)).cuda()
+    args = (slots, valid, torch.from_numpy(rng.uniform(-1, 1, (k, 512)).astype(np.float32)).cuda(),
+            torch.from_numpy(w_obs).cuda(), obs if with_color else None, 64.0, 4.0)
+    maps_k = [x.clone() for x in planes]
+    maps_r = [x.clone() for x in planes]
+    ktsdf.tsdf_update(*maps_k, *args)
+    ktsdf.tsdf_update_ref(*maps_r, *args)
+    for out_k, out_r, b in zip(maps_k, maps_r, planes):
+        _assert_bit_equal(out_k, out_r, b, slots[valid].long())
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_tsdf_update_kernel_is_one_launch(march_run, with_color):
+    """A K8 call is one device launch of tsdf_update_kernel and no other
+    device op."""
+    vol, args, _ = _update_case(march_run, with_color)
+    maps = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
+    _assert_one_launch(_device_ops(lambda: ktsdf.tsdf_update(*maps, *args)),
+                       "tsdf_update_kernel")
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_tsdf_update_kernel_repeats_bit_for_bit(march_run, with_color):
+    """Two calls on clones of the same planes leave them bit-equal."""
+    vol, args, _ = _update_case(march_run, with_color)
+    first = [x.clone() for x in (vol.sdf, vol.weight, vol.color)]
+    second = [x.clone() for x in first]
+    ktsdf.tsdf_update(*first, *args)
+    ktsdf.tsdf_update(*second, *args)
+    for a, b in zip(first, second):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("with_color", [True, False])
+def test_tsdf_update_kernel_replays_in_cuda_graph(march_run, with_color):
+    """One K8 call captured in a CUDA graph and replayed updates as the
+    eager call does."""
+    vol, args, _ = _update_case(march_run, with_color)
+    _replay_equals_eager(lambda m: ktsdf.tsdf_update(*m, *args),
+                         [vol.sdf, vol.weight, vol.color])
 
 
 @pytest.mark.parametrize("kind", ["march", "dense"])

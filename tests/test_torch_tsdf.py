@@ -84,6 +84,59 @@ def test_tsdf_update_ref_matches_pallas_kernel(color_gain, with_color):
     assert n(out[1]).max() == 64.0
 
 
+def _rewritten(x, w):
+    """(x w) (1 / w) in float32, one rounding per operation: what the
+    running average leaves of x where w_obs is 0."""
+    return (x * w) * (np.float32(1.0) / w)
+
+
+def _changing(rng, lo, hi, w):
+    """Per entry of w, a float32 value in [lo, hi) that (x w) (1 / w)
+    changes: the first of 64 candidates that it does."""
+    cand = rng.uniform(lo, hi, w.shape + (64,)).astype(np.float32)
+    moved = _rewritten(cand, w[..., None]) != cand
+    assert moved.any(-1).all()
+    return np.take_along_axis(cand, moved.argmax(-1)[..., None], -1)[..., 0]
+
+
+def test_tsdf_update_ref_rewrites_unobserved_voxels():
+    """w_obs = 0 on every listed voxel, w_old in {3, 5, 7}, sdf and color
+    chosen where (x w) (1 / w) != x: the plain K8 rewrites every such voxel
+    as float32 numpy computes (x w) (1 / w), bit for bit, and keeps its
+    weight, so K8 must read every valid voxel, not only the observed ones.
+    Slot 0, a fused block that only invalid entries name, stays as it was.
+    The interpret-mode Pallas kernel agrees within tests/test_pallas.py's
+    bounds (XLA may fuse the multiply-adds)."""
+    rng = np.random.default_rng(7)
+    c, k = 12, 16
+    w = rng.choice(np.float32([3.0, 5.0, 7.0]), (c, B3))
+    w3 = np.tile(w, 3)  # the weight of each packed color segment's voxel
+    sdf, color = _changing(rng, -1.0, 1.0, w), _changing(rng, 0.0, 1.0, w3)
+    valid = np.zeros(k, bool)
+    valid[rng.permutation(k)[: c - 1]] = True
+    slots = np.zeros(k, np.int32)  # invalid entries name slot 0
+    slots[valid] = rng.permutation(np.arange(1, c))
+    psi = rng.uniform(-1, 1, (k, B3)).astype(np.float32)
+    w_obs = np.zeros((k, B3), np.float32)
+    obs = rng.uniform(0, 1, (k, 3 * B3)).astype(np.float32)
+    out = [t(sdf).clone(), t(w).clone(), t(color).clone()]
+    ktsdf.tsdf_update(*out, t(slots), t(valid), t(psi), t(w_obs), t(obs), 64.0)
+    rows = slots[valid]
+    exp_s, exp_c = sdf.copy(), color.copy()
+    exp_s[rows] = _rewritten(sdf[rows], w[rows])
+    exp_c[rows] = _rewritten(color[rows], w3[rows])
+    assert (exp_s[rows] != sdf[rows]).all() and (exp_c[rows] != color[rows]).all()
+    for got, exp in zip(out, (exp_s, w, exp_c)):
+        np.testing.assert_array_equal(n(got).view(np.int32), exp.view(np.int32))
+    assert 0 not in rows and (w[0] > 0).all()  # slot 0: fused, never listed
+    s2, w2, c2 = tsdf_pl.fused_tsdf_update(
+        jnp.asarray(sdf[slots]), jnp.asarray(w[slots]), jnp.asarray(color[slots]),
+        jnp.asarray(psi), jnp.asarray(w_obs), jnp.asarray(obs), 64.0, True)
+    np.testing.assert_allclose(np.asarray(s2)[valid], exp_s[rows], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(w2)[valid], w[rows], rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(c2)[valid], exp_c[rows], rtol=1e-5, atol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def frames():
     poses = jsyn.orbit_trajectory(20)
