@@ -417,6 +417,14 @@ def step(cfg, state, frame, seg=None):
         torch.cuda.set_sync_debug_mode("default")
 
 
+def stepped_frames(res, n: int) -> int:
+    """Frames of an n-frame ``pipeline.run`` whose step called the kernel
+    wrappers: the eager frames and the capture of the step's one CUDA graph
+    (``color_every`` 1); a replay launches the kernels without a call, and
+    the wrappers do not count it."""
+    return n - res.graph_replays + int(res.graph_replays > 0)
+
+
 def launch_counts() -> dict:
     """Each kernel's launch count, and those of the photometric variants of
     K2 and K3 and the color variants of K4 and K5."""
@@ -1468,6 +1476,7 @@ def drift_pipeline_phase(card):
     inputs, the K2/K3 launches of verification and the first loop closure's
     BA problem (``BaRecorder``)."""
     import check_accuracy_port as cap
+    from instancefusion_tpu_torch.engine import step_graph
     from instancefusion_tpu_torch.ops import blocks, kernels
 
     cfg = cap.pipeline_config()
@@ -1508,8 +1517,11 @@ def drift_pipeline_phase(card):
     check(s["relocalizations"] == 0, "drift pipeline: relocalized while tracking was healthy")
     check(bool(bare["track_ok"].all()), "drift pipeline: the bare engine lost track")
     # Through the kernels: K1 on every frame and keyframe; K2 and K3 9 rounds
-    # a frame (ICP), 3 (the sentinel) and 8 a verification.
-    n = DRIFT_FRAMES
+    # a frame (ICP), 3 (the sentinel) and 8 a verification; the step's
+    # launches counted on the frames that called it.
+    n = stepped_frames(res, DRIFT_FRAMES)
+    check(res.graph_replays == DRIFT_FRAMES - step_graph.LEAD_FRAMES,
+          f"drift pipeline: {res.graph_replays} graph replays of {DRIFT_FRAMES} frames")
     expect = {"K1": n + s["keyframes"], "K2": 12 * n + 8 * rec.calls,
               "K3": 12 * n + 8 * rec.calls, "K4": n, "K5": n}
     for k, count in expect.items():
@@ -1933,9 +1945,10 @@ def sequence_runner_phase(card):
         check(s.get("ate_rmse_m", 1.0) < cfg.tsdf.voxel_size,
               f"sequence runner: streamed ATE {s.get('ate_rmse_m')} >= {cfg.tsdf.voxel_size}")
         check(s_out > 0 and s_in > 0, f"sequence runner: stream_in {s_in}, stream_out {s_out}")
+        stepped = stepped_frames(res, 2 * SEQ_POSES)
         for k, per in PER_FRAME.items():
-            check(launches[k] >= per * 2 * SEQ_POSES,
-                  f"sequence runner: {k} launched {launches[k]} < {per * 2 * SEQ_POSES}")
+            check(launches[k] >= per * stepped,
+                  f"sequence runner: {k} launched {launches[k]} < {per * stepped}")
 
         # The trajectory reads back within 1e-6 of the run's poses.
         traj = np.loadtxt(paths["traj.txt"])

@@ -11,6 +11,15 @@ it reads a device value back only where the reference does (the tracking
 gate, the lost-frame count, a fern dissimilarity, a verification's
 verdict, the keyframe count), and those reads are the frame's only syncs.
 
+On one card, on the block map with splat prediction and with tracking (no
+``gt_odometry``), the engine step runs as a CUDA-graph replay after the
+run's first frames (``engine/step_graph.py``): the graph is captured once a
+run and dropped with it.  The state's step tensors are then fixed tensors
+that every replay overwrites: a caller may rebind them between frames (the
+next replay copies the new ones in), and keeps one past the next frame
+only as a clone; the ``StepInfo`` holds until the next frame.  Every other
+path (sharded, march, dense, ``gt_odometry``) runs the eager step.
+
 Map consistency after a correction: the TSDF stays where it was fused;
 loop closures move the world-from-map anchor ``T_wm`` (the world pose of
 frame k is T_wm T_mc(k)), so the engine pose never jumps against the fused
@@ -50,7 +59,7 @@ from instancefusion_tpu_torch.config import EngineConfig
 from instancefusion_tpu_torch.engine import instances as inst
 from instancefusion_tpu_torch.engine import localloop as ll
 from instancefusion_tpu_torch.engine import posegraph as pg
-from instancefusion_tpu_torch.engine import slam, slam_sharded
+from instancefusion_tpu_torch.engine import slam, slam_sharded, step_graph
 from instancefusion_tpu_torch.engine.streaming import BlockStreamer, ShardedBlockStreamer
 from instancefusion_tpu_torch.geometry.se3 import se3_inverse
 from instancefusion_tpu_torch.ops import blocks, preprocess
@@ -67,6 +76,7 @@ class PipelineResult:
     fps: float
     state: Any
     backend: Any
+    graph_replays: int = 0  # frames whose step ran as a CUDA-graph replay
 
 
 def _optimize_after_loop(backend, cfg: EngineConfig, kf_a, kf_b, T_rel, ba_terms_fn=None):
@@ -106,13 +116,17 @@ def check_sharded(cfg: EngineConfig, local_loops: bool = False) -> None:
 
 
 class _Engine:
-    """The engine calls of a run: the one-device engine, or the sharded
-    engine on `group`."""
+    """The engine calls of a run: the one-device engine, its step replayed
+    from CUDA graphs where `graphed` (``step_graph.engages``), or the
+    sharded engine on `group`."""
 
-    def __init__(self, cfg: EngineConfig, group=None):
+    def __init__(self, cfg: EngineConfig, group=None, graphed: bool = False):
         self.cfg, self.group = cfg, group
+        self.graphed = step_graph.GraphedStep(cfg) if graphed else None
 
     def step(self, state, depth, color):
+        if self.graphed is not None:
+            return self.graphed(state, depth, color)
         if self.group is None:
             return slam.step(self.cfg, state, depth, color)
         return slam_sharded.step(self.cfg, self.group, state, depth, color)
@@ -205,6 +219,13 @@ def run(
     work overlaps the next step.  With ``cfg.num_shards > 1`` it runs on
     every rank of the current shard group, on the group's device;
     ``reshard_every`` and ``reshard_skew`` apply to that path alone.
+
+    On one CUDA card, on the block map with splat prediction and without
+    ``gt_odometry``, the step is replayed from a CUDA graph after
+    ``step_graph.LEAD_FRAMES`` eager frames (``graph_replays`` counts the
+    replays).  Each replay overwrites the state's step tensors, so a tensor
+    kept past its frame is cloned (the pose a dispatched segmentation is
+    fused at).  No graph outlives the call.
     """
     group = ba_terms_fn = None
     if cfg.num_shards > 1:
@@ -216,7 +237,8 @@ def run(
     else:
         dev = _device.resolve(device)
         state = slam.init_state(cfg, T_init_wc, dev)
-    engine = _Engine(cfg, group)
+    engine = _Engine(cfg, group,
+                     graphed=step_graph.engages(cfg, dev, gt_odometry is not None))
     rerender = engine.rerender
 
     backend = pg.allocate(cfg, device=dev)
@@ -336,7 +358,8 @@ def run(
             with timer.phase("seg_dispatch"):
                 seg = segment_fn(frame)
             if seg is not None:
-                pending_seg = (seg, frame.depth, state.T_wc)
+                # A clone: the next frame's replay overwrites the pose.
+                pending_seg = (seg, frame.depth, state.T_wc.clone())
                 seg_dispatched = True
 
         # Local (active/inactive) loop closure (engine/localloop.py).
@@ -489,4 +512,5 @@ def run(
         fps=len(est) / max(elapsed, 1e-9),
         state=state,
         backend=backend,
+        graph_replays=engine.graphed.replays if engine.graphed is not None else 0,
     )

@@ -351,21 +351,29 @@ class ListFill:
     read: the most in-frustum rows of one list and the rows dropped past a
     list's length, summed over lists (``compact_mask_indices`` keeps the
     first k).  ``LIST_FILL`` notes every list of the splat path, on one
-    card (``frustum_slots``) and on each rank (``shard.fused_step_map``)."""
+    card (``frustum_slots``) and on each rank (``shard.fused_step_map``).
+
+    The two counts live in tensors made at the first note on a device and
+    then updated in place, so that a CUDA graph captured around a note
+    (``engine/step_graph.py``) adds to them at every replay."""
 
     def __init__(self):
-        self.reset()
+        self.largest = self.dropped = None
+        self.length = 0
 
     def reset(self) -> None:
-        self.largest = self.dropped = None
+        """Zero the counts in place."""
+        if self.largest is not None:
+            self.largest.zero_()
+            self.dropped.zero_()
         self.length = 0
 
     def note(self, mask: torch.Tensor, k: int) -> None:
         n = mask.sum()
-        over = torch.clamp(n - k, min=0)
-        first = self.largest is None
-        self.largest = n if first else torch.maximum(self.largest, n)
-        self.dropped = over if first else self.dropped + over
+        if self.largest is None or self.largest.device != n.device:
+            self.largest, self.dropped = torch.zeros_like(n), torch.zeros_like(n)
+        torch.maximum(self.largest, n, out=self.largest)
+        self.dropped.add_(torch.clamp(n - k, min=0))
         self.length = k
 
     def read(self) -> dict:

@@ -13,7 +13,9 @@ from instancefusion_tpu_torch.ops.kernels import icp, labels, preprocess, raycas
 def wrappers():
     """The kernel wrappers by kernel id; each carries a ``launches`` count
     (K2 and K3 also ``launches_rgb``, their launches with the photometric
-    planes; K4 and K5 ``launches_color``, their launches with color)."""
+    planes; K4 and K5 ``launches_color``, their launches with color).  The
+    counts grow at each call, eager or inside a CUDA-graph capture; a
+    replay of a captured graph is not counted."""
     return {
         "K1": preprocess.fused_preprocess,
         "K2": icp.associate_gather,

@@ -8,7 +8,9 @@ never falls back from one to the other.  A plain version stays plain: it
 launches no kernel whatever its tensors' device, so the kernel can be held
 against it on the card.  ``launches`` on each wrapper counts the calls that
 launched its kernel; ``launches_rgb`` on K2 and K3 counts those among them
-that carried the photometric planes.
+that carried the photometric planes.  A count grows when a wrapper is
+called, eagerly or inside a CUDA-graph capture; a replay of the graph
+launches the kernel again without a call and is not counted.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ voxels of the listed payload rows, in place: the vote planes ``label`` and
 ``count`` are updated and no copy of them is made.  The kernel also does
 the projective association that the reference runs around its Pallas vote
 (``ops/labels.py:fuse``).  CUDA tensors launch the kernel, CPU tensors run
-``label_vote_ref``.  ``label_vote.launches`` counts kernel launches.
+``label_vote_ref``.  ``label_vote.launches`` counts kernel launches: eager
+calls and CUDA-graph captures, not a graph's replays.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ and bilateral-filtered depth, vertex map, normal map and valid mask, in one
 kernel for a CUDA tensor, at any bilateral radius whose tile fits the
 card's shared memory (``tile_plan``); a CPU tensor runs
 ``fused_preprocess_ref``, the port's plain level-0 code.
-``fused_preprocess.launches`` counts kernel launches.
+``fused_preprocess.launches`` counts kernel launches: eager calls and
+CUDA-graph captures, not a graph's replays.
 """
 
 from __future__ import annotations

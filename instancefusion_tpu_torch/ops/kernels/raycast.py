@@ -6,7 +6,8 @@ depth through a separable tent footprint, softmin-composited so nearer
 surfaces win (see ``csrc/raycast.cu``).  ``finish_splat_images`` turns the
 planes into a depth/validity/color prediction.  CUDA tensors launch the
 kernel; CPU tensors run ``splat_planes_ref``.  ``splat_planes.launches``
-counts kernel launches, ``splat_planes.launches_color`` those with color.
+counts kernel launches, ``splat_planes.launches_color`` those with color:
+eager calls and CUDA-graph captures, not a graph's replays.
 
 The kernel sums with no float atomics: a first pass writes each listed
 block's votes, in voxel order, and the box of pixels their taps reach

@@ -8,7 +8,8 @@ per-voxel observations computed outside the kernel (the touched-block
 integrate of ``ops/blocks.py``) and updates the listed rows in place.
 CUDA tensors launch the kernels, CPU tensors run ``integrate_ref`` and
 ``tsdf_update_ref``.  Each wrapper's ``launches`` counts its launches,
-``integrate.launches_color`` those that fuse color.
+``integrate.launches_color`` those that fuse color: eager calls and
+CUDA-graph captures, not a graph's replays.
 """
 
 from __future__ import annotations

@@ -269,6 +269,59 @@ def _replay_equals_eager(call, planes):
         assert torch.equal(_bits(a), _bits(b))
 
 
+def _replay_gives_eager(call, inputs):
+    """`call(*inputs)` captured in a CUDA graph on zeroed copies of
+    `inputs`, then replayed once the inputs are copied in, returns what an
+    eager call returns, bit for bit: the graph reads its inputs at replay."""
+    eager = call(*inputs)
+    static = [torch.zeros_like(x) for x in inputs]
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call(*static)
+    for x, x0 in zip(static, inputs):
+        x.copy_(x0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert len(out) == len(eager)
+    for a, b in zip(out, eager):
+        assert (a is None and b is None) or torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("radius", [2, 5])
+def test_preprocess_kernel_replays_in_cuda_graph(run, radius):
+    """One K1 call (a compile-time radius, and the runtime-radius instance
+    with its device table of taps) replayed from a CUDA graph gives the
+    eager call's level-0 maps."""
+    _, frame, _ = run
+    cfg = dataclasses.replace(CFG.preprocess, bilateral_radius=radius)
+    _replay_gives_eager(lambda d: kpre.fused_preprocess(d, CFG.intrinsics, cfg),
+                        [frame.depth])
+
+
+@pytest.mark.parametrize("lvl", [0, 2])
+def test_gather_kernel_replays_in_cuda_graph(run, lvl):
+    """One K2 call replayed from a CUDA graph gives the eager call's q_w,
+    n_t, ok and gate."""
+    state, frame, _ = run
+    src_v, src_ok, T, T_pinv, intr, pv, pn, pok, stride = _level_args(state, frame, lvl)
+    _replay_gives_eager(
+        lambda *t: kicp.associate_gather(*t[:4], intr, *t[4:], stride),
+        [src_v, src_ok, T, T_pinv, pv, pn, pok])
+
+
+@pytest.mark.parametrize("with_color", [False, True])
+def test_splat_kernel_replays_in_cuda_graph(run, with_color):
+    """One K5 call and its finish (``splat_depth`` at rmax 8) replayed from
+    a CUDA graph give the eager call's depth, valid and color."""
+    state, frame, _ = run
+    vol, slots, valid, d0 = _slot_list(state, frame)
+    _replay_gives_eager(
+        lambda *t: kray.splat_depth(*t[:7], CFG.intrinsics, CFG.tsdf, with_color=with_color,
+                                    depth_prior=t[7], rmax=8),
+        [slots, valid, vol.block_coords, vol.sdf, vol.weight, vol.color, frame.T_wc, d0])
+
+
 @pytest.mark.parametrize("with_color", [True, False])
 def test_integrate_kernel_replays_in_cuda_graph(run, with_color):
     """One K4 call captured in a CUDA graph and replayed fuses as the eager
