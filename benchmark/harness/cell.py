@@ -191,7 +191,8 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     fill = pblocks.LIST_FILL.read()
     vol = res.state.volume
     log(f"window: {n} frames in {t_end - source.t0!r} s, {res.n_keyframes} keyframes, "
-        f"{res.n_loops} loops, {int(res.state.lost_frames)} frames lost")
+        f"{res.n_loops} loops, {int(res.state.lost_frames)} frames lost, "
+        f"{res.graph_replays} steps replayed from a CUDA graph")
     log(f"map: {int(vol.n_active)} of {cfg.tsdf.table_capacity} blocks allocated, "
         f"{int(vol.overflow)} dropped for lack of room; in-frustum lists of "
         f"{fill['length']}: the largest {fill['largest']} rows, {fill['dropped']} rows "

@@ -16,7 +16,10 @@ previous prediction where the frame has no depth) reaches back that far and
 no further.
 
 The reference runs on the program's device after the window, with TF32
-off, and takes nothing the program made but its outputs.
+off, and takes nothing the program made but its outputs.  On the card its
+map update of a frame is replayed from a CUDA graph after ``LEAD_FRAMES``
+eager frames: the same plain operations on the same tensors, without the
+host's launches.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from harness import scene
 from harness import spec as _spec
 
 PRIOR_FRAMES = 10
+LEAD_FRAMES = 2
+# The map's fields that the update rebinds (the payload is updated in place).
+VOLUME_FIELDS = ("directory", "block_coords", "n_active", "overflow")
 
 
 @dataclasses.dataclass
@@ -75,6 +81,81 @@ def sample_frames(n: int, seed: int, count: int) -> list[int]:
     return sorted({int(k) for k in picked} | {n - 1})
 
 
+class MapUpdate:
+    """The reference's map update of one frame at a given pose, as the
+    program's splat step makes it (``engine/slam._splat_map_update`` without
+    the prediction): the filtered depth, new blocks, the in-frustum list,
+    and the integration (K4's plain version).  With `count_work` it also
+    builds the frame's pyramid and counts its valid pixels, the listed
+    blocks and the fused voxels.
+
+    Returns (filtered depth, slots, slot validity, counts or None); on the
+    card after ``LEAD_FRAMES`` frames these lie in a CUDA graph's memory and
+    hold until the next call.  ``volume`` is the map after the last call."""
+
+    def __init__(self, cfg, volume, count_work: bool):
+        from reference.ops import blocks as rblocks
+
+        self.cfg, self.volume, self.count_work = cfg, volume, count_work
+        tcfg = cfg.tsdf
+        self.k_list = min(tcfg.touched_capacity, rblocks.num_blocks_per_axis(tcfg) ** 3)
+        self.graphed = volume.sdf.device.type == "cuda"
+        self.eager = 0
+        self.inputs = None
+        self.graphs: dict = {}
+
+    def _update(self, vol, d_k, c_k, T, col_gain):
+        from reference.ops import blocks as rblocks
+        from reference.ops import preprocess as rpre
+        from reference.ops.kernels import tsdf as rktsdf
+
+        cfg = self.cfg
+        intr, tcfg = cfg.intrinsics, cfg.tsdf
+        if self.count_work:
+            pyr = rpre.build_frame_pyramid(d_k, intr, cfg.preprocess, cfg.icp.levels)
+            d0 = pyr[0]["depth"]
+        else:  # the map update reads the filtered depth alone
+            d0 = rpre.bilateral_filter(rpre.clamp_depth(d_k, cfg.preprocess), cfg.preprocess)
+        vol = rblocks.discover_allocate(vol, d0, T, intr, tcfg)
+        slots, slot_valid = rblocks.frustum_slots(vol, T, intr, tcfg, cfg.raycast.near,
+                                                  cfg.raycast.far, self.k_list)
+        counts = None
+        if self.count_work:
+            z, pix, seen = rktsdf.project_voxels(vol.block_coords, slots, T, intr, tcfg)
+            dpx = d0.reshape(-1)[pix]
+            fused = (seen & (dpx > 0.0) & (dpx - z > -tcfg.trunc) & slot_valid[:, None]).sum()
+            counts = torch.stack([p["valid"].sum() for p in pyr] + [slot_valid.sum(), fused])
+        color, gain = col_gain
+        vol = rblocks.integrate_slots(vol, slots, slot_valid, d0,
+                                      c_k if color and cfg.use_color else None, T, intr, tcfg,
+                                      color_gain=gain)
+        return vol, (d0, slots, slot_valid, counts)
+
+    def __call__(self, d_k, c_k, T, color: bool, gain: float):
+        col_gain = (color, gain)
+        if not self.graphed or self.eager < LEAD_FRAMES:
+            self.eager += 1
+            self.volume, out = self._update(self.volume, d_k, c_k, T, col_gain)
+            return out
+        if self.inputs is None:
+            self.inputs = [d_k.clone(), c_k.clone(), T.clone()]
+        else:
+            for dst, src in zip(self.inputs, (d_k, c_k, T)):
+                dst.copy_(src)
+        if col_gain not in self.graphs:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                new, out = self._update(self.volume, *self.inputs, col_gain)
+                for name in VOLUME_FIELDS:
+                    dst, src = getattr(self.volume, name), getattr(new, name)
+                    if src is not dst:
+                        dst.copy_(src)
+            self.graphs[col_gain] = (graph, out)
+        graph, out = self.graphs[col_gain]
+        graph.replay()
+        return out
+
+
 def replay(engine: dict, depth: torch.Tensor, color: torch.Tensor, order, served: Served,
            seed: int, samples: int, count_work: bool = False):
     """Teacher-forced replay of the window: returns (numbers, per-frame work
@@ -85,7 +166,6 @@ def replay(engine: dict, depth: torch.Tensor, color: torch.Tensor, order, served
     from reference.ops import blocks as rblocks
     from reference.ops import icp as ricp
     from reference.ops import preprocess as rpre
-    from reference.ops.kernels import tsdf as rktsdf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -94,25 +174,20 @@ def replay(engine: dict, depth: torch.Tensor, color: torch.Tensor, order, served
     intr, tcfg = cfg.intrinsics, cfg.tsdf
     P = served.poses.to(dev, torch.float32)
     n = P.shape[0]
-    k_list = min(tcfg.touched_capacity, rblocks.num_blocks_per_axis(tcfg) ** 3)
     pred_color = cfg.use_color and (cfg.raycast.predict_color or cfg.icp.rgb_weight > 0.0)
     picked = set(sample_frames(n, seed, samples))
     need_pred = set()
     for k in sorted(picked) + [n]:
         need_pred.update(range(max(0, k - PRIOR_FRAMES), k))
 
-    vol = rblocks.allocate(tcfg, dev, with_color=cfg.use_color)
+    mapper = MapUpdate(cfg, rblocks.allocate(tcfg, dev, with_color=cfg.use_color), count_work)
     pred = None
     gaps_t, gaps_r, ref_ok = [], [], []
-    work = []
+    counts = []
     for k in range(n):
         d_k, c_k = scene.frame(depth, color, int(order[k]))
-        if k in picked or count_work:
-            pyr = rpre.build_frame_pyramid(d_k, intr, cfg.preprocess, cfg.icp.levels)
-            d0 = pyr[0]["depth"]
-        else:  # the map update reads the filtered depth alone
-            d0 = rpre.bilateral_filter(rpre.clamp_depth(d_k, cfg.preprocess), cfg.preprocess)
         if k in picked:
+            pyr = rpre.build_frame_pyramid(d_k, intr, cfg.preprocess, cfg.icp.levels)
             seed_T = rslam._motion_seed(P[k - 1], P[k - 2], cfg.icp.vel_seed)
             res = ricp.track(pyr, pred.vertex_w, pred.normal_w, pred.valid, seed_T, P[k - 1],
                              intr, cfg.icp)
@@ -123,40 +198,34 @@ def replay(engine: dict, depth: torch.Tensor, color: torch.Tensor, order, served
             ref_ok.append(bool(res.valid))
         # The step's map update (engine/slam._splat_map_update) at the served pose.
         T = P[k]
-        prior = torch.where(d0 > 0.0, d0,
-                            pred.depth if pred is not None else torch.zeros_like(d0))
-        vol = rblocks.discover_allocate(vol, d0, T, intr, tcfg)
-        slots, slot_valid = rblocks.frustum_slots(vol, T, intr, tcfg, cfg.raycast.near,
-                                                  cfg.raycast.far, k_list)
-        col, gain, is_color = c_k, 1.0, cfg.use_color
+        is_color, gain = cfg.use_color, 1.0
         if cfg.use_color and cfg.color_every > 1:
             is_color = k % cfg.color_every == 0
-            col, gain = (c_k, float(cfg.color_every)) if is_color else (None, 1.0)
+            gain = float(cfg.color_every) if is_color else 1.0
+        d0, slots, slot_valid, frame_counts = mapper(d_k, c_k, T, is_color, gain)
         if count_work:
-            z, pix, seen = rktsdf.project_voxels(vol.block_coords, slots, T, intr, tcfg)
-            dpx = d0.reshape(-1)[pix]
-            fused = (seen & (dpx > 0.0) & (dpx - z > -tcfg.trunc) & slot_valid[:, None]).sum()
-            work.append({"pixels": [int(p["valid"].numel()) for p in pyr],
-                         "valid": torch.stack([p["valid"].sum() for p in pyr]),
-                         "k": k_list, "listed": slot_valid.sum(), "fused": fused,
-                         "color": bool(is_color), "pred_color": bool(pred_color)})
-        vol = rblocks.integrate_slots(vol, slots, slot_valid, d0,
-                                      col if cfg.use_color else None, T, intr, tcfg,
-                                      color_gain=gain)
+            counts.append((frame_counts.clone(), bool(is_color)))
         if k in need_pred:
+            prior = torch.where(d0 > 0.0, d0,
+                                pred.depth if pred is not None else torch.zeros_like(d0))
             # Color planes change no depth or validity: only the last
             # prediction, which is compared, carries them.
-            pred = rblocks.raycast_splat(vol, T, intr, tcfg, slots, slot_valid,
+            pred = rblocks.raycast_splat(mapper.volume, T, intr, tcfg, slots, slot_valid,
                                          with_color=pred_color and k == n - 1,
                                          depth_prior=prior, rmax=cfg.raycast.splat_rmax)
         else:
             pred = None
-    if work:
-        valid = torch.stack([rec["valid"] for rec in work]).cpu().tolist()
-        listed = torch.stack([rec["listed"] for rec in work]).cpu().tolist()
-        fused = torch.stack([rec["fused"] for rec in work]).cpu().tolist()
-        for rec, v, li, fu in zip(work, valid, listed, fused):
-            rec.update(valid=[int(x) for x in v], listed=int(li), fused=int(fu))
+    vol = mapper.volume
+
+    work = []
+    if count_work:
+        pixels = [intr.level(lvl).width * intr.level(lvl).height
+                  for lvl in range(cfg.icp.levels)]
+        rows = torch.stack([c for c, _ in counts]).cpu().tolist()
+        for (_, is_color), row in zip(counts, rows):
+            work.append({"pixels": pixels, "valid": [int(x) for x in row[:-2]],
+                         "k": mapper.k_list, "listed": int(row[-2]), "fused": int(row[-1]),
+                         "color": is_color, "pred_color": bool(pred_color)})
 
     numbers = {
         "pose_mm": 1e3 * max(gaps_t, default=0.0),

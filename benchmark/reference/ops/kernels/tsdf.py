@@ -56,7 +56,7 @@ def integrate_ref(block_coords, sdf, weight, color, slots, valid, depth,
     kept where nothing was ever fused, weight capped at max_weight; color
     averaged with weight ``color_gain`` when ``frame_color`` is given.
     """
-    slots = slots[valid].long()  # valid slots are unique
+    slots = slots.long()
     z, pix, seen = project_voxels(block_coords, slots, T_wc, intr, cfg)
     d = depth.reshape(-1)[pix]
     sdf_obs = d - z
@@ -68,20 +68,33 @@ def integrate_ref(block_coords, sdf, weight, color, slots, valid, depth,
 
     s_old, w_old = sdf[slots], weight[slots]
     w_new = w_old + w_obs
-    sdf[slots] = torch.where(
+    s_new = torch.where(
         w_new > 0.0, (s_old * w_old + psi * w_obs) / torch.clamp(w_new, min=1e-6), s_old
     )
-    weight[slots] = torch.clamp(w_new, max=cfg.max_weight)
+    _write_rows(sdf, slots, valid, s_new, s_old)
+    _write_rows(weight, slots, valid, torch.clamp(w_new, max=cfg.max_weight), w_old)
     if frame_color is not None:
         b3 = w_old.shape[1]
         c_obs = frame_color.reshape(-1, 3)[pix]  # (K, B^3, 3)
         c_old = color[slots]
+        c_new = c_old.clone()
         wc = color_gain * w_obs
         den = torch.clamp(w_old + wc, min=1e-6)
         for c in range(3):
             seg = slice(c * b3, (c + 1) * b3)
-            c_old[:, seg] = (c_old[:, seg] * w_old + c_obs[..., c] * wc) / den
-        color[slots] = c_old
+            c_new[:, seg] = (c_old[:, seg] * w_old + c_obs[..., c] * wc) / den
+        _write_rows(color, slots, valid, c_new, c_old)
+
+
+def _write_rows(plane, slots, valid, new, old):
+    """plane[slots[i]] = new[i] for the valid entries (unique slots), with no
+    host read: an invalid entry writes again what the first valid entry
+    writes (or, with none valid, its own old row back), so every write to
+    a row carries the same values."""
+    first = torch.argmax(valid.to(torch.int32)).reshape(1)
+    new = torch.where(valid[:, None], new, old)
+    rows = torch.where(valid, slots, slots.index_select(0, first))
+    plane[rows] = torch.where(valid[:, None], new, new.index_select(0, first))
 
 
 def tsdf_update_ref(sdf, weight, color, slots, valid, psi, w_obs, obs,
