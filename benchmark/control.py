@@ -22,8 +22,10 @@ BENCH_DIR = Path(__file__).resolve().parent
 
 def control_run(cell, seed: int, frames: int, device: str, tf32: bool = True):
     """The reference's own SLAM over the cell's first `frames` frames, as the
-    program's window would run them (loops off); returns the judge's
-    (numbers, correct, checked)."""
+    program's window would run them (loops off), judged by the cell's
+    judges as a run's result; returns (numbers, correct, checked)."""
+    import types
+
     import torch
 
     from harness import cell as _cell
@@ -41,10 +43,9 @@ def control_run(cell, seed: int, frames: int, device: str, tf32: bool = True):
     for c in order:
         state, _ = rslam.step(cfg, state, *scene.frame(depth, color, c))
         served_poses.append(state.T_wc)
-    served = judge.Served(poses=torch.stack(served_poses), volume=state.volume,
-                          pred=state.pred)
-    numbers, _ = judge.replay(cell.config["engine"], depth, color, order, served, seed,
-                              cell.traffic["pose_samples"])
+    judges = judge.make(cell, seed, dev, count_work=False)
+    judge.keep(judges, types.SimpleNamespace(poses=torch.stack(served_poses), state=state), {})
+    numbers, _ = judge.replay(judges, cell.config["engine"], depth, color, order)
     correct, checked = judge.verdict(numbers, cell.config["check"])
     return numbers, correct, checked
 

@@ -1,7 +1,8 @@
 """One run of one cell: set-up, the measured window through the program's
 ``engine.pipeline.run``, the traced reading, and the comparison with the
-plain reference.  ``run.py`` is the command; tests call ``run_cell`` on the
-CPU at a small size.
+plain reference by the configuration's judges (``harness/judge.py``).
+``run.py`` is the command; tests call ``run_cell`` on the CPU at a small
+size.
 """
 
 from __future__ import annotations
@@ -31,9 +32,12 @@ class LayerRun:
     """What a per-layer metric reads (``metrics/<name>.py``)."""
     engine: dict  # the configuration's engine settings
     trace: object  # harness.trace.Trace of the frames traced for the device alone
-    traced_first: int  # the first of those frames
+    labelled: object  # harness.trace.Trace of the next frames, host and device: spans
+    traced_first: int  # the first of the device-alone frames
     traced_frames: int  # their number
-    work: list  # counted work records of every frame of the window (harness.work)
+    work: list  # the SLAM judge's work records, one a window frame (harness.work)
+    records: dict  # every judge's records by the judge's name
+    judges: dict  # the judge modules by name
     head_frames: int  # the window's first frames, run before any profiler
     head_s: float  # their host seconds: the first release to their completion
 
@@ -163,11 +167,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t_warm = time.perf_counter()
-    run_kw = dict(T_init_wc=poses[0], enable_loops=bool(t["loops"]), device=dev)
+    judges = judge.make(cell, seed, dev, count_work=trace)
+    base_kw = dict(T_init_wc=poses[0], enable_loops=bool(t["loops"]), device=dev)
 
     # Warm-up: every shape the window uses, outside the timed call.
     warm = [traffic.Frame(*scene.frame(depth, color, i), i) for i in range(t["warmup_frames"])]
-    pipeline.run(cfg, warm, **run_kw)
+    pipeline.run(cfg, warm, **judge.run_kw(judges, base_kw, window=False))
     del warm
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -182,7 +187,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
                                  on_frame=tracer.on_frame if tracer else None,
                                  on_end=tracer.on_end if tracer else None)
     host0 = host_state()
-    res = pipeline.run(cfg, source, **run_kw)
+    res = pipeline.run(cfg, source, **judge.run_kw(judges, base_kw, window=True))
     t_end = time.perf_counter()
     host1 = host_state()
     n = len(source.order)
@@ -222,21 +227,21 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: st
             f"({tracer.head_frames / max(tracer.head_s, 1e-9)!r} frames/s); traced: {traced} "
             f"frames from frame {tracer.first} in "
             f"{dtrace.window_s if dtrace else 0.0!r} s of device activity alone")
-        layer = LayerRun(engine=cell.config["engine"], trace=dtrace,
+        layer = LayerRun(engine=cell.config["engine"], trace=dtrace, labelled=tracer.labelled,
                          traced_first=tracer.first or 0, traced_frames=traced, work=[],
+                         records={}, judges=cell.judge_modules,
                          head_frames=tracer.head_frames, head_s=tracer.head_s)
 
-    served = judge.Served(poses=served_poses, volume=vol, pred=res.state.pred)
+    judge.keep(judges, res, {"list_fill": fill})
     failed = int(res.state.lost_frames)
     del res, vol
     t_ref = time.perf_counter()
-    numbers, work_recs = judge.replay(cell.config["engine"], depth, color, source.order, served,
-                                      seed, t["pose_samples"], count_work=trace)
+    numbers, records = judge.replay(judges, cell.config["engine"], depth, color, source.order)
     log(f"reference: {time.perf_counter() - t_ref!r} s")
     correct, checked = judge.verdict(numbers, cell.config["check"])
 
     if trace:
-        layer.work = work_recs
+        layer.work, layer.records = records.get("slam", []), records
         metrics = {}
         for m in cell.per_layer:
             value = cell.metric_modules[m["name"]].read(layer)

@@ -1,8 +1,9 @@
 """The benchmark's data, found by name: ``BENCHMARK.json`` at the checkout's
-root, ``configs/<config>.json``, ``traffic/<traffic>.json`` and
-``metrics/<name>.py`` beside this package.  A new configuration, traffic
-mix or per-layer metric is a new file and a new entry; nothing here names
-one.
+root, ``configs/<config>.json``, ``traffic/<traffic>.json``,
+``metrics/<name>.py`` and the judges a configuration names,
+``judges/<name>.py``, beside this package.  A new configuration, traffic
+mix, per-layer metric or judge is a new file and a new entry; nothing here
+names one.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 import importlib.util
 import json
+import sys
 from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
@@ -25,6 +27,7 @@ class Cell:
     end_to_end: list  # entries of BENCHMARK.json's end_to_end this cell reports
     per_layer: list  # entries of its per_layer this cell reports
     metric_modules: dict  # per-layer name -> loaded module
+    judge_modules: dict  # the configuration's judges, in order: name -> loaded module
 
 
 def load_json(path) -> dict:
@@ -32,14 +35,26 @@ def load_json(path) -> dict:
         return json.load(f)
 
 
-def load_metric(name: str, bench_dir: Path = BENCH_DIR):
-    """The per-layer metric module ``metrics/<name>.py`` (names may hold dots)."""
-    path = bench_dir / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}",
+def _load(kind: str, name: str, bench_dir: Path):
+    path = bench_dir / f"{kind}s" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} {name!r}: {path} is missing")
+    spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name.replace('.', '_')}",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # where dataclasses look up a module's names
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_metric(name: str, bench_dir: Path = BENCH_DIR):
+    """The per-layer metric module ``metrics/<name>.py`` (names may hold dots)."""
+    return _load("metric", name, bench_dir)
+
+
+def load_judge(name: str, bench_dir: Path = BENCH_DIR):
+    """The judge module ``judges/<name>.py`` (``harness/judge.py``)."""
+    return _load("judge", name, bench_dir)
 
 
 def _reports(entry: dict, workload: str) -> bool:
@@ -63,6 +78,7 @@ def load_cell(workload: str, root: Path = ROOT, bench_dir: Path = BENCH_DIR) -> 
         end_to_end=[m for m in spec["end_to_end"] if _reports(m, workload)],
         per_layer=per_layer,
         metric_modules={m["name"]: load_metric(m["name"], bench_dir) for m in per_layer},
+        judge_modules={j: load_judge(j, bench_dir) for j in config["judges"]},
     )
 
 

@@ -3,6 +3,7 @@ harness's modules import from ``benchmark/``, the program from the root."""
 
 import copy
 import dataclasses
+import functools
 import sys
 from pathlib import Path
 
@@ -38,10 +39,11 @@ def cell_of(config: str, traffic: str):
     or not BENCHMARK.json lists it."""
     from harness import spec
 
-    return spec.Cell(name=f"{config}.{traffic}",
-                     config=spec.load_json(spec.BENCH_DIR / "configs" / f"{config}.json"),
+    cfg = spec.load_json(spec.BENCH_DIR / "configs" / f"{config}.json")
+    return spec.Cell(name=f"{config}.{traffic}", config=cfg,
                      traffic=spec.load_json(spec.BENCH_DIR / "traffic" / f"{traffic}.json"),
-                     chips=1, end_to_end=[], per_layer=[], metric_modules={})
+                     chips=1, end_to_end=[], per_layer=[], metric_modules={},
+                     judge_modules={j: spec.load_judge(j) for j in cfg["judges"]})
 
 
 @pytest.fixture
@@ -56,3 +58,33 @@ def tiny():
             return shrink(cell_of(*workload.split(".")))
 
     return make
+
+
+class FrameClock:
+    """A clock that moves `dt` a frame: the window's frame source advances it
+    as it releases a frame, the traced run's phases read it.  A window of
+    `seconds` then holds seconds / dt frames and the untraced head
+    trace_after_s / dt, however loaded the host is."""
+
+    def __init__(self, dt: float):
+        self.dt, self.ticks = dt, 0
+
+    def tick(self) -> float:
+        self.ticks += 1
+        return self.ticks * self.dt
+
+    def read(self) -> float:
+        return self.ticks * self.dt
+
+
+@pytest.fixture
+def frame_clock(monkeypatch):
+    """Runs of ``harness.cell.run_cell`` counted in frames: 0.05 s a frame."""
+    from harness import cell as _cell
+    from harness import traffic
+
+    clock = FrameClock(0.05)
+    monkeypatch.setattr(traffic, "FrameSource",
+                        functools.partial(traffic.FrameSource, clock=clock.tick))
+    monkeypatch.setattr(_cell, "Tracer", functools.partial(_cell.Tracer, clock=clock.read))
+    return clock
